@@ -1,0 +1,94 @@
+"""Serve-time parameter quantization: float params -> packed QTensors.
+
+Counterpart of ``repro.core.qlinear``. ``quantize_params`` walks the
+parameter tree, asks the ``QuantPolicy`` for each matmul weight's variant
+and packs it. A stacked layer weight ``(L, K, N)`` becomes one QTensor
+whose payloads keep the leading ``L`` axis, as the reference's ``vmap``
+gives (reduced tinyllama ``wq``: ``QTensor(q3_k, (256, 256))`` with
+``qs`` of shape ``(2, 64, 256)``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core import quantize as Q
+from repro_torch.core.policy import QuantPolicy
+
+# parameter-path fragments that are never quantized at serve time
+_NEVER = ("ln", "norm", "wpe", "b_", "bias", "router", "conv", "A_log", "D",
+          "dt_bias", "pos", "wte")
+
+
+def _is_quantizable_path(path: str) -> bool:
+    parts = path.split("/")
+    leaf = parts[-1]
+    for frag in _NEVER:
+        if leaf == frag or leaf.startswith(frag):
+            return False
+    if any(p.startswith("ln") or p == "norm" for p in parts[:-1]):
+        return False
+    return True
+
+
+def _flatten_paths(tree, prefix="") -> List[Tuple[str, Any]]:
+    out = []
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.extend(_flatten_paths(tree[k], f"{prefix}{k}/"))
+    else:
+        out.append((prefix[:-1], tree))
+    return out
+
+
+def quantize_params(params: Dict[str, Any], policy: QuantPolicy
+                    ) -> Tuple[Dict[str, Any], Dict[str, Optional[str]]]:
+    """Returns (qparams, report). report: path -> variant|None. Packing
+    runs on the device the weights lie on."""
+    report: Dict[str, Optional[str]] = {}
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        path = prefix[:-1]
+        if node.dim() < 2 or not _is_quantizable_path(path):
+            report[path] = None
+            return node
+        K, N = node.shape[-2], node.shape[-1]
+        variant = policy.variant_for(path, K, N)
+        report[path] = variant
+        if variant is None:
+            return node
+        return Q.quantize_fn(variant)(node)
+
+    return walk(params), report
+
+
+def quantized_param_bytes(qparams) -> Dict[str, int]:
+    """Device footprint by leaf kind (packed vs residual float)."""
+    packed = unpacked = 0
+    for _, leaf in _flatten_paths(qparams):
+        if isinstance(leaf, Q.QTensor):
+            packed += leaf.nbytes
+        else:
+            unpacked += leaf.numel() * leaf.element_size()
+    return dict(packed=packed, unpacked=unpacked, total=packed + unpacked)
+
+
+def variant_counts(report: Dict[str, Optional[str]], qparams) -> Dict[str, int]:
+    """MatMul layers per variant, counting each stacked layer (the paper's
+    Table III count: tinyllama under paper_llama_mix is 45 q2_k + 110 q3_k)."""
+    counts: Dict[str, int] = {}
+    leaves = dict(_flatten_paths(qparams))
+    for path, v in report.items():
+        if v is not None:
+            counts[v] = counts.get(v, 0) + leaves[path].num_layers
+    return counts
+
+
+def to_device(tree, device: torch.device):
+    """Move a (possibly quantized) parameter tree to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

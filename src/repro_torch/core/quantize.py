@@ -1,0 +1,188 @@
+"""Quantize / dequantize for the GGUF k-quant family, in PyTorch.
+
+Counterpart of ``repro.core.quantize``. Payloads are bit-exact against
+the reference: the arithmetic runs in float32 in the reference's order
+(``/ 3.0``, ``/ 15.0``, ``/ 31.0``, multiply by ``_safe_inv``, cast to
+float16 last), and ``torch.round`` rounds half to even as ``jnp.round``
+does. Every function takes ``(..., K, N)`` weights: leading axes (a
+stacked layer axis) pass through, which is what the reference's ``vmap``
+over stacked layers gives.
+
+This slice ports the paper's two native variants, Q2_K and Q3_K. The
+other registered formats raise ``NotImplementedError`` until their slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core.formats import slab_pack, slab_unpack
+
+
+@dataclasses.dataclass
+class QTensor:
+    """A (K, N) weight matrix in packed BFP form.
+
+    ``data`` holds the payload arrays named per ``formats.FORMATS[variant]``
+    in the reference's structure-of-arrays layout (N on the minor axis).
+    A stacked tensor keeps its leading layer axis on every payload while
+    ``shape`` stays the per-layer logical (K, N); ``layer(i)`` views one
+    layer without copying.
+    """
+    variant: str
+    shape: Tuple[int, int]
+    data: Dict[str, torch.Tensor]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in self.data.values())
+
+    @property
+    def num_layers(self) -> int:
+        """Length of the leading stack axis (1 for an unstacked tensor)."""
+        v = next(iter(self.data.values()))
+        return v.shape[0] if v.dim() == 3 else 1
+
+    def layer(self, i: int) -> "QTensor":
+        return QTensor(self.variant, self.shape,
+                       {k: v[i] for k, v in self.data.items()})
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.variant, self.shape,
+                       {k: v.to(device) for k, v in self.data.items()})
+
+
+def _nearest(x):
+    # round half to even, as jnp.round does in the reference
+    return torch.round(x)
+
+
+def _safe_inv(x):
+    pos = x > 0
+    return torch.where(pos, 1.0 / torch.where(pos, x, torch.ones_like(x)),
+                       torch.zeros_like(x))
+
+
+def _check_k(w: torch.Tensor) -> Tuple[int, int]:
+    K, N = w.shape[-2], w.shape[-1]
+    if K % 256:
+        raise ValueError(f"K={K} is not a multiple of the 256-row super-block")
+    return K, N
+
+
+# ---------------------------------------------------------------------------
+# Q2_K
+# ---------------------------------------------------------------------------
+
+def quantize_q2_k(w: torch.Tensor) -> QTensor:
+    K, N = _check_k(w)
+    lead = w.shape[:-2]
+    nsb = K // 256
+    x = w.to(torch.float32).reshape(*lead, nsb, 16, 16, N)   # (sb, blk, in, N)
+    bmax = x.amax(dim=-2)
+    bmin = x.amin(dim=-2)
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    min_f = torch.maximum(zero, -bmin)                       # (sb, 16, N) >= 0
+    scale_f = torch.maximum(bmax + min_f, zero) / 3.0
+    d = scale_f.amax(dim=-2) / 15.0                          # (sb, N)
+    dmin = min_f.amax(dim=-2) / 15.0
+    sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 15)
+    m_q = torch.clamp(_nearest(min_f * _safe_inv(dmin).unsqueeze(-2)), 0, 15)
+    eff_sc = d.unsqueeze(-2) * sc_q                          # (sb, 16, N)
+    eff_mn = dmin.unsqueeze(-2) * m_q
+    q = torch.clamp(_nearest((x + eff_mn.unsqueeze(-2))
+                             * _safe_inv(eff_sc).unsqueeze(-2)), 0, 3)
+    qs = slab_pack(q.reshape(*lead, K, N), 2, 256)
+    scales = (sc_q.to(torch.uint8) | (m_q.to(torch.uint8) << 4)).reshape(
+        *lead, K // 16, N)
+    return QTensor("q2_k", (K, N), dict(
+        qs=qs, scales=scales,
+        d=d.to(torch.float16), dmin=dmin.to(torch.float16)))
+
+
+def dequantize_q2_k(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    nsb = K // 256
+    lead = t.data["d"].shape[:-2]
+    q = slab_unpack(t.data["qs"], 2, 256).reshape(
+        *lead, nsb, 16, 16, N).to(torch.float32)
+    sc = (t.data["scales"] & 0xF).reshape(*lead, nsb, 16, N).to(torch.float32)
+    mn = (t.data["scales"] >> 4).reshape(*lead, nsb, 16, N).to(torch.float32)
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)          # (sb, 1, N)
+    dmin = t.data["dmin"].to(torch.float32).unsqueeze(-2)
+    w = (d * sc).unsqueeze(-2) * q - (dmin * mn).unsqueeze(-2)
+    return w.reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Q3_K
+# ---------------------------------------------------------------------------
+
+def quantize_q3_k(w: torch.Tensor) -> QTensor:
+    K, N = _check_k(w)
+    lead = w.shape[:-2]
+    nsb = K // 256
+    x = w.to(torch.float32).reshape(*lead, nsb, 16, 16, N)
+    amax = x.abs().amax(dim=-2)                              # (sb, 16, N)
+    scale_f = amax / 4.0
+    d = scale_f.amax(dim=-2) / 31.0                          # (sb, N)
+    sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 31)
+    eff = d.unsqueeze(-2) * sc_q
+    q = torch.clamp(_nearest(x * _safe_inv(eff).unsqueeze(-2)), -4, 3) + 4
+    q = q.reshape(*lead, K, N).to(torch.uint8)               # [0, 7]
+    qs = slab_pack(q & 3, 2, 256)
+    hmask = slab_pack(q >> 2, 1, 256)
+    scales = (sc_q + 32).to(torch.uint8).reshape(*lead, K // 16, N)
+    return QTensor("q3_k", (K, N), dict(
+        qs=qs, hmask=hmask, scales=scales, d=d.to(torch.float16)))
+
+
+def dequantize_q3_k(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    nsb = K // 256
+    lead = t.data["d"].shape[:-2]
+    lo = slab_unpack(t.data["qs"], 2, 256)
+    hi = slab_unpack(t.data["hmask"], 1, 256)
+    q = (lo + (hi << 2)).to(torch.float32) - 4.0             # [-4, 3]
+    q = q.reshape(*lead, nsb, 16, 16, N)
+    sc = t.data["scales"].to(torch.float32).reshape(*lead, nsb, 16, N) - 32.0
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)
+    w = (d * sc).unsqueeze(-2) * q
+    return w.reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+_QUANTIZE = {"q2_k": quantize_q2_k, "q3_k": quantize_q3_k}
+_DEQUANTIZE = {"q2_k": dequantize_q2_k, "q3_k": dequantize_q3_k}
+
+
+def _not_ported(variant: str):
+    return NotImplementedError(
+        f"variant {variant!r} is not ported yet; the port has "
+        f"{sorted(_QUANTIZE)} (the others are still to port)")
+
+
+def quantize_fn(variant: str):
+    """The packing function of an already-resolved variant."""
+    if variant not in _QUANTIZE:
+        F.get_format(variant)               # unknown names raise KeyError
+        raise _not_ported(variant)
+    return _QUANTIZE[variant]
+
+
+def quantize(variant: str, w: torch.Tensor) -> QTensor:
+    """Quantize weights (..., K, N) along K. Applies the llama.cpp fallback
+    rule (K % 256 != 0 -> q8_0)."""
+    return quantize_fn(F.pick_fallback(variant, w.shape[-2]))(w)
+
+
+def dequantize(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    if t.variant not in _DEQUANTIZE:
+        raise _not_ported(t.variant)
+    return _DEQUANTIZE[t.variant](t, dtype=dtype)

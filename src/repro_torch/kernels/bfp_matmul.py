@@ -1,0 +1,130 @@
+"""Fused BFP dequant-matmul: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas``). The
+kernel (``csrc/bfp_matmul.cu``, CUDA C++ for sm_90a) reads a
+reference-packed Q2_K or Q3_K ``QTensor`` as it is, dequantizes each
+super-block on chip and accumulates in f32; the dequantized weight never
+reaches device memory. Its source note gives its bound and design.
+
+``bfp_matmul_plain`` is the same function in plain PyTorch: dequantize to
+f32, round to bf16 and back, one f32 matmul per row, one cast. CPU tensors
+take it (the CPU tests use it); on the card it is only the yardstick the
+kernel is checked against.
+
+``launches`` counts kernel launches per variant. The wrapper adds one
+where it launches and nowhere else, so a run can show that the main path
+went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.kernels import _build
+
+VARIANTS = ("q2_k", "q3_k")
+launches: Dict[str, int] = {v: 0 for v in VARIANTS}
+
+# output dtype codes of the C interface
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# payload dtypes the kernel reads, per variant, in argument order
+_PAYLOADS = {
+    "q2_k": (("qs", torch.uint8, 4), ("scales", torch.uint8, 16),
+             ("d", torch.float16, 256), ("dmin", torch.float16, 256)),
+    "q3_k": (("qs", torch.uint8, 4), ("hmask", torch.uint8, 8),
+             ("scales", torch.uint8, 16), ("d", torch.float16, 256)),
+}
+
+
+def reset_launches() -> None:
+    for v in VARIANTS:
+        launches[v] = 0
+
+
+def bfp_matmul_plain(x: torch.Tensor, t: QTensor, *,
+                     compute_dtype=torch.bfloat16,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x: (M, K); t: packed (K, N). Returns (M, N) in ``out_dtype``.
+
+    Each row is its own (1, K) @ (K, N) product: BLAS picks its kernel,
+    and so its summation order, by M, so one product over all rows would
+    make a row's value depend on how many rows share the call. Batched
+    admission equals sequential admission only if it does not."""
+    out_dtype = out_dtype or x.dtype
+    w = dequantize(t, dtype=torch.float32).to(compute_dtype).to(torch.float32)
+    xf = x.to(compute_dtype).to(torch.float32)
+    rows = [xf[m:m + 1] @ w for m in range(xf.shape[0])]
+    out = torch.cat(rows) if rows else xf.new_zeros((0, t.shape[1]))
+    return out.to(out_dtype)
+
+
+def _check(x: torch.Tensor, t: QTensor, compute_dtype, out_dtype):
+    if t.variant not in _PAYLOADS:
+        raise NotImplementedError(
+            f"the CUDA kernel has no {t.variant!r} variant yet; it has "
+            f"{VARIANTS}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"the kernel computes in bf16, got {compute_dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    if x.dtype not in _OUT_CODE or out_dtype not in _OUT_CODE:
+        raise ValueError(f"the kernel takes x and out in float32 or "
+                         f"bfloat16, got {x.dtype} -> {out_dtype}")
+    if not x.is_cuda:
+        raise ValueError("the CUDA kernel needs a CUDA tensor")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    M, K = x.shape
+    Kt, N = t.shape
+    if K != Kt or K % 256:
+        raise ValueError(f"x has K={K}, weight has K={Kt} (must match and "
+                         "be a multiple of 256)")
+    if N % 16:
+        raise ValueError(f"the kernel copies 16-byte chunks of packed rows "
+                         f"and needs N % 16 == 0, got N={N}")
+    for name, dtype, kdiv in _PAYLOADS[t.variant]:
+        a = t.data[name]
+        if a.shape != (K // kdiv, N) or a.dtype != dtype:
+            raise ValueError(
+                f"{t.variant} payload {name!r} is {tuple(a.shape)} "
+                f"{a.dtype}, the kernel takes ({K // kdiv}, {N}) {dtype}")
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"payload {name!r} must be contiguous on "
+                             f"{x.device}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"payload {name!r} is not 16-byte aligned")
+    return M, K, N
+
+
+def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
+                    compute_dtype=torch.bfloat16,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on x (M, K) against packed t (K, N) on the
+    current stream. Raises on anything the kernel does not take."""
+    out_dtype = out_dtype or x.dtype
+    M, K, N = _check(x, t, compute_dtype, out_dtype)
+    lib = _build.load("bfp_matmul")
+    # the kernel reads bf16(x): the cast is the compute-dtype cast of the
+    # reference, done once here (free for the bf16 activations of a model)
+    xb = x.to(torch.bfloat16)
+    if xb.data_ptr() % 16:
+        raise ValueError("x is not 16-byte aligned")
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    p = {k: v.data_ptr() for k, v in t.data.items()}
+    oc = _OUT_CODE[out_dtype]
+    if t.variant == "q2_k":
+        err = lib.bfp_matmul_q2_k(xb.data_ptr(), p["qs"], p["scales"],
+                                  p["d"], p["dmin"], out.data_ptr(), oc,
+                                  M, K, N, stream)
+    else:
+        err = lib.bfp_matmul_q3_k(xb.data_ptr(), p["qs"], p["hmask"],
+                                  p["scales"], p["d"], out.data_ptr(), oc,
+                                  M, K, N, stream)
+    if err != 0:
+        raise RuntimeError(f"bfp_matmul_{t.variant} launch failed with "
+                           f"cudaError_t {err} (M={M}, K={K}, N={N})")
+    launches[t.variant] += 1
+    return out

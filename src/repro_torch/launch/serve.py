@@ -1,0 +1,84 @@
+"""Serving launcher: quantize a model with a mixed BFP policy and serve a
+queue of requests through the continuous-batching engine.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy paper_llama_mix --tokens 10 --requests 8 --slots 4
+
+The weights and prompts are random, drawn from seed 0. The model runs on the GPU
+(``--device cuda``, the default; it raises where there is none). Add
+``--reduced --device cpu`` for a small run on the CPU through the
+kernel's plain PyTorch version.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_arch
+from repro_torch.core.policy import get_policy
+from repro_torch.core.qlinear import (quantize_params, quantized_param_bytes,
+                                      variant_counts)
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import Engine, ServeConfig
+
+SEED = 0            # random weights and prompts
+PROMPT_LEN = 6      # the paper's Table IV prompts
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--policy", default="paper_llama_mix",
+                    help="named policy from core.policy.POLICIES")
+    ap.add_argument("--requests", type=int, default=4,
+                    help="queue depth (may exceed --slots)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="concurrent batch slots")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="decode steps per host sync (0 = --tokens)")
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--tokens", type=int, default=10)      # paper: 10 tokens
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch, reduced=args.reduced)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(cfg, gen, device=dev)
+    t0 = time.perf_counter()
+    qp, report = quantize_params(params, get_policy(args.policy))
+    del params
+    sizes = quantized_param_bytes(qp)
+    print(f"quantized with policy {args.policy} in "
+          f"{time.perf_counter() - t0:.1f}s: {variant_counts(report, qp)} "
+          f"matmuls; packed {sizes['packed'] / 2**20:.1f} MiB + residual "
+          f"{sizes['unpacked'] / 2**20:.1f} MiB")
+
+    scfg = ServeConfig(max_new_tokens=args.tokens, cache_len=args.cache_len,
+                       max_slots=args.slots,
+                       decode_chunk=args.chunk or args.tokens)
+    engine = Engine(cfg, qp, scfg, device=dev)
+    rng = np.random.default_rng(SEED)
+    ids = [engine.submit([int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                       PROMPT_LEN)])
+           for _ in range(args.requests)]
+    results = engine.run()
+    for rid in ids[:4]:
+        print(f"req {rid}: {results[rid]}")
+    s = engine.stats
+    print(f"prefill {s['prefill_s']:.3f}s ({s['prefill_tok_per_s']:.1f} "
+          f"tok/s, {s['prefill_groups']} groups, mean ttft "
+          f"{s['ttft_s'] * 1e3:.1f}ms), decode {s['decode_s']:.3f}s, "
+          f"{s['tok_per_s']:.1f} tok/s ({s['tokens']} tokens, "
+          f"{s['host_syncs']} host syncs / {s['requests']} requests, "
+          f"{s['chunks']} chunks) on {dev}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,164 @@
+"""Model building blocks: norms, rotary embeddings, attention, MLPs.
+
+Counterpart of ``repro.models.layers`` for the dense llama family. Plain
+functions on tensors; any weight matrix may be a packed ``QTensor``, in
+which case the matmul goes to ``kernels.ops.bfp_matmul`` (the CUDA kernel
+on the card). Shapes and layouts are the reference's:
+q ``(B, S, H, D)``, caches ``(B, T, KH, D)``, positions ``(B, S)``.
+
+Attention here is the reference's materializing ``naive`` path in f32.
+The fused prefill attention (``attn_impl="fused"``) is a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch.core.quantize import QTensor
+from repro_torch.kernels import ops as kops
+
+NEG_INF = -1e30
+
+
+def dense(x: torch.Tensor, w, *, impl: str = "auto") -> torch.Tensor:
+    """MatMul against either a plain tensor or a packed QTensor."""
+    if isinstance(w, QTensor):
+        return kops.bfp_matmul(x, w, impl=impl)
+    return x @ w.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.to(torch.float32)).to(dt)
+
+
+def norm(x, p: Dict, kind: str, eps: float):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rmsnorm(x, p["w"], eps)
+
+
+# ---------------------------------------------------------------------------
+# position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / d_head))
+
+
+def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float):
+    """positions: (B, S). Returns cos/sin (B, S, D/2) in f32."""
+    inv = rope_freqs(d_head, theta, device=positions.device)
+    ang = positions[..., None].to(torch.float32) * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x: (B, S, H, D); cos/sin: (B, S, D/2). Split-half (llama) convention."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    d2 = x.shape[-1] // 2
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _split_gqa(q, n_kv: int):
+    """(B, S, H, D) -> (B, S, KH, G, D)."""
+    B, S, H, D = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, D)
+
+
+def naive_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    softcap=None, q_positions=None, kv_positions=None):
+    """q: (B,S,H,D), k/v: (B,T,KH,D) -> (B,S,H,D). Materializes scores."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    scale = scale or (1.0 / math.sqrt(D))
+    qg = _split_gqa(q, KH)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    dev = q.device
+    qp = (q_positions if q_positions is not None
+          else torch.arange(S, device=dev)[None])
+    kp = (kv_positions if kv_positions is not None
+          else torch.arange(T, device=dev)[None])
+    mask = torch.ones((B, S, T), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kp[:, None, :] <= qp[:, :, None]
+    if window:
+        mask &= kp[:, None, :] > qp[:, :, None] - window
+    mask &= kp[:, None, :] >= 0              # invalid cache slots carry -1
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def prefill_attention(q, k_cache, v_cache, slot_pos, k_new, v_new,
+                      positions, valid, *, window=None, scale=None,
+                      softcap=None, impl="naive"):
+    """Chunked-prefill attention: one prompt chunk against cache + itself.
+
+    q: (B,C,H,D) chunk queries; k_cache/v_cache: (B,T,KH,D) ring *before*
+    this chunk's writes; slot_pos: (B,T) absolute positions per ring slot
+    (-1 empty); k_new/v_new: (B,C,KH,D) this chunk's keys/values;
+    positions: (B,C) absolute; valid: (B,C) False on right-padding (those
+    keys never win attention; their query outputs are garbage the caller
+    ignores)."""
+    if impl != "naive":
+        raise NotImplementedError(
+            f"prefill attention impl {impl!r} is not ported yet (the fused "
+            "kernel is a later slice); use 'naive'")
+    kv_pos_new = torch.where(valid, positions, torch.full_like(positions, -1))
+    k_all = torch.cat([k_cache, k_new.to(k_cache.dtype)], dim=1)
+    v_all = torch.cat([v_cache, v_new.to(v_cache.dtype)], dim=1)
+    kv_pos = torch.cat([slot_pos, kv_pos_new], dim=1)
+    return naive_attention(q, k_all, v_all, causal=True, window=window,
+                           scale=scale, softcap=softcap,
+                           q_positions=positions, kv_positions=kv_pos)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *,
+                     window=None, scale=None, softcap=None):
+    """Single-step decode. q: (B,1,H,D); caches: (B,T,KH,D);
+    slot_pos: (B,T) absolute positions per cache slot (-1 = empty);
+    q_pos: (B,) current position."""
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    scale = scale or (1.0 / math.sqrt(D))
+    qg = _split_gqa(q, KH).to(torch.float32)[:, 0]          # (B,KH,G,D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg,
+                     k_cache.to(torch.float32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    msk = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
+    if window:
+        msk &= slot_pos > (q_pos[:, None] - window)
+    s = torch.where(msk[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_mlp(x, p: Dict, *, impl="auto"):
+    g = dense(x, p["w_gate"], impl=impl)
+    u = dense(x, p["w_up"], impl=impl)
+    return dense(Fn.silu(g) * u, p["w_down"], impl=impl)

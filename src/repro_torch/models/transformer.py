@@ -1,0 +1,306 @@
+"""Dense transformer: init, chunked prefill and decode against a KV ring.
+
+Counterpart of ``repro.models.transformer`` for the dense llama family
+(RMSNorm, split-half RoPE, GQA, SwiGLU). Parameters are a plain dict tree
+with the reference's paths and stacked layer axis; a weight may be a packed
+``QTensor`` whose payloads carry that axis too. The reference's layer
+``scan`` is a Python loop over layers that indexes the stacked tensors.
+
+Caches: ``k``/``v`` of shape ``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)``
+int32 with -1 for an empty slot, as in the reference. Where the reference
+returns an updated copy, ``decode_step``, ``prefill_chunk`` and
+``cache_set_slots`` update the cache tensors in place (saving a copy of
+the whole cache per step) and return the same dict.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core.quantize import QTensor
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+_KV_FAMILIES = ("dense",)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    """This slice has the dense llama family as tinyllama uses it."""
+    unported = [f for f, on in (
+        (f"family {cfg.family!r}", cfg.family not in _KV_FAMILIES),
+        ("fused_qkv", cfg.fused_qkv), (f"act {cfg.act!r}", cfg.act != "swiglu"),
+        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb != "rope"),
+        ("qk_norm", cfg.qk_norm), ("tie_embeddings", cfg.tie_embeddings),
+        ("kv_cache_quant", cfg.kv_cache_quant)) if on]
+    if unported:
+        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    """Random parameters with the reference's tree, shapes and scales
+    (normal / sqrt(fan_in)), drawn from ``generator`` in a fixed order. The
+    generator must live on ``device``. The values differ from the
+    reference's (a jax.random key); tests move the reference's parameters
+    over with ``repro_torch.bridge`` instead."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    d, Lc, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    H, KH, Dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+
+    def dense_init(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w / math.sqrt(fan_in)).to(dtype)
+
+    def norm_p(width, stacked=True):
+        shape = (Lc, width) if stacked else (width,)
+        return {"w": torch.ones(shape, dtype=dtype, device=dev)}
+
+    p: Dict[str, Any] = {"wte": dense_init((V, d), d)}
+    attn = {
+        "wq": dense_init((Lc, d, H * Dh), d),
+        "wk": dense_init((Lc, d, KH * Dh), d),
+        "wv": dense_init((Lc, d, KH * Dh), d),
+        "wo": dense_init((Lc, H * Dh, d), H * Dh),
+    }
+    p["layers"] = {
+        "ln1": norm_p(d), "ln2": norm_p(d), "attn": attn,
+        "mlp": {
+            "w_gate": dense_init((Lc, d, f), d),
+            "w_up": dense_init((Lc, d, f), d),
+            "w_down": dense_init((Lc, f, d), f),
+        },
+    }
+    p["ln_f"] = norm_p(d, stacked=False)
+    p["lm_head"] = dense_init((d, V), d)
+    return p
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of the stacked layer tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.layer(i)
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, tokens):
+    # the embedding is never packed (qlinear never quantizes ``wte``)
+    return params["wte"][tokens].to(torch_dtype(cfg.dtype))
+
+
+def _logits(params, cfg: ModelConfig, h, impl="auto"):
+    return L.dense(h, params["lm_head"], impl=impl).to(torch.float32)
+
+
+def _qkv(a_in, lp, cfg: ModelConfig, impl):
+    B, S, _ = a_in.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    attn = lp["attn"]
+    q = L.dense(a_in, attn["wq"], impl=impl).reshape(B, S, H, Dh)
+    k = L.dense(a_in, attn["wk"], impl=impl).reshape(B, S, KH, Dh)
+    v = L.dense(a_in, attn["wv"], impl=impl).reshape(B, S, KH, Dh)
+    return q, k, v
+
+
+def _attn_out(o, lp, cfg, impl):
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, o.shape[2] * o.shape[3])
+    return L.dense(o, lp["attn"]["wo"], impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# decode cache
+# ---------------------------------------------------------------------------
+
+def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Ring-buffer length: sliding-window archs only keep the window."""
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, B: int, seq_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Zero/empty decode cache sized for contexts up to ``seq_len``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    T = attn_cache_len(cfg, seq_len)
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.full((B, T), -1, dtype=torch.int32, device=dev)}
+
+
+def cache_set_slots(cache: Dict[str, Any], group_cache: Dict[str, Any],
+                    indices) -> Dict[str, Any]:
+    """Scatter a G-row group cache into batch slots ``indices`` (G,) of a
+    multi-slot decode cache, in place. An index >= B drops that row (the
+    scheduler points padding rows out of range)."""
+    B = cache["pos"].shape[0]
+    idx = torch.as_tensor(indices, dtype=torch.long).cpu()
+    keep = idx < B
+    rows = keep.nonzero()[:, 0]
+    dst = idx[keep]
+    if dst.numel() == 0:
+        return cache
+    dev = cache["pos"].device
+    rows, dst = rows.to(dev), dst.to(dev)
+    for k, v in cache.items():
+        upd = group_cache[k].to(v.dtype)
+        if k == "pos":
+            v[dst] = upd[rows]
+        else:
+            v[:, dst] = upd[:, rows]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against the cache)
+# ---------------------------------------------------------------------------
+
+def _attn_layer_decode(h, lp, kc, vc, slot_pos, position, slot, cfg,
+                       cos_sin, impl, live):
+    """h: (B,1,d); kc/vc: (B,T,KH,Dh) views of this layer's ring, updated
+    in place; position/slot: (B,); live: (B,) bool or None -- dead slots
+    leave the cache untouched (their logits are garbage)."""
+    B = h.shape[0]
+    a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
+    q, k, v = _qkv(a_in, lp, cfg, impl)
+    cos, sin = cos_sin
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    bidx = torch.arange(B, device=h.device)
+    k_new, v_new = k[:, 0].to(kc.dtype), v[:, 0].to(vc.dtype)
+    if live is not None:
+        lv = live[:, None, None]
+        k_new = torch.where(lv, k_new, kc[bidx, slot])
+        v_new = torch.where(lv, v_new, vc[bidx, slot])
+    kc[bidx, slot] = k_new                  # in place: one row per slot
+    vc[bidx, slot] = v_new
+    o = L.decode_attention(q, kc, vc, slot_pos, position,
+                           window=cfg.sliding_window,
+                           softcap=cfg.attn_logit_softcap)
+    h = h + _attn_out(o, lp, cfg, impl)
+    m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
+    return h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+
+
+def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
+                tokens, position, live=None):
+    """One decode step. tokens: (B,) int; position: (B,) absolute position
+    of the new token. Returns (logits (B, V) f32, cache), the cache updated
+    in place.
+
+    live: optional (B,) bool slot mask for continuous batching -- dead
+    slots run the math but do NOT mutate their cache or position
+    book-keeping, so a freed slot can be re-admitted without stale state."""
+    _check_family(cfg)
+    impl = cfg.kernel_impl
+    B = tokens.shape[0]
+    h = _embed(params, cfg, tokens)[:, None, :]             # (B,1,d)
+    cos_sin = L.rope_cos_sin(position[:, None], cfg.d_head, cfg.rope_theta)
+
+    T = cache["k"].shape[2]
+    slot = position % T
+    bidx = torch.arange(B, device=h.device)
+    pos_new = position.to(torch.int32)
+    if live is not None:
+        pos_new = torch.where(live, pos_new, cache["pos"][bidx, slot])
+    cache["pos"][bidx, slot] = pos_new      # in place
+    slot_pos = cache["pos"]
+    for li in range(cfg.n_layers):
+        h = _attn_layer_decode(h, _layer(params["layers"], li),
+                               cache["k"][li], cache["v"][li], slot_pos,
+                               position, slot, cfg, cos_sin, impl, live)
+    h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
+    return _logits(params, cfg, h[:, 0], impl=impl), cache
+
+
+def lm_logits(params, cfg: ModelConfig, h):
+    """LM head on final-norm hidden states h (..., d) -> logits f32. The
+    scheduler gathers the few rows it needs (each sequence's last prompt
+    token) and runs the vocab matmul on just those."""
+    return _logits(params, cfg, h, impl=cfg.kernel_impl)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
+                  tokens, start: int, lengths):
+    """One batched prefill chunk against a decode cache.
+
+    tokens: (B, C) int, right-padded; start: absolute position of column
+    0 (shared by every row); lengths: (B,) true prompt lengths. Columns at
+    positions >= lengths are padding: they run the math but never write
+    the KV ring and never win attention. A row with length 0 is a group
+    padding dummy. Each chunk's queries attend the pre-chunk ring plus the
+    chunk's own keys, then the chunk's K/V land in the ring at
+    ``position % T`` -- the same semantics as ``decode_step`` once per
+    token, with MatMul-shaped batches. Requires C <= ring length.
+
+    Returns (final-norm hidden (B, C, d), cache updated in place)."""
+    _check_family(cfg)
+    B, C = tokens.shape
+    positions = (start + torch.arange(C, dtype=torch.long,
+                                      device=tokens.device))[None].expand(B, C)
+    valid = positions < lengths[:, None]
+    return _masked_chunk(params, cfg, cache, tokens, positions, valid)
+
+
+def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid):
+    """One (B, C) masked chunk forward against the ring, writing valid
+    columns at ``positions % T``."""
+    impl = cfg.kernel_impl
+    B, C = tokens.shape
+    T = cache["k"].shape[2]
+    if C > T:
+        raise ValueError(f"chunk of {C} columns exceeds the ring ({T})")
+    h = _embed(params, cfg, tokens)
+    cos, sin = L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+    # a row's C positions are distinct mod T (C <= T), so each column owns
+    # its ring slot: invalid columns write back what the slot held, which
+    # is the reference's out-of-range "drop" without a host sync
+    bidx = torch.arange(B, device=tokens.device)[:, None]
+    slot = positions % T
+    old_pos = cache["pos"].clone()          # every layer attends pre-chunk
+    vmask = valid[:, :, None, None]
+    for li in range(cfg.n_layers):
+        lp = _layer(params["layers"], li)
+        kc, vc = cache["k"][li], cache["v"][li]
+        a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
+        q, k, v = _qkv(a_in, lp, cfg, impl)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        k_chunk = k.to(kc.dtype)            # ring-dtype rounding, so results
+        v_chunk = v.to(vc.dtype)            # do not depend on chunk bounds
+        o = L.prefill_attention(q, kc, vc, old_pos, k_chunk, v_chunk,
+                                positions, valid,
+                                window=cfg.sliding_window,
+                                softcap=cfg.attn_logit_softcap)
+        # in place, after the attention above read the pre-write ring
+        kc[bidx, slot] = torch.where(vmask, k_chunk, kc[bidx, slot])
+        vc[bidx, slot] = torch.where(vmask, v_chunk, vc[bidx, slot])
+        h = h + _attn_out(o, lp, cfg, impl)
+        m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
+        h = h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+    cache["pos"][bidx, slot] = torch.where(
+        valid, positions.to(torch.int32), old_pos[bidx, slot])
+    h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
+    return h, cache
