@@ -7,23 +7,44 @@ Run it from the root of a checkout, on a machine with one NVIDIA GPU (it
 is written for an H100). It imports neither JAX nor the JAX package.
 Phases, each of which exits nonzero on failure:
 
-1. build: compile every CUDA source of the port with nvcc, from the
-   checkout's sources, and print the build time.
-2. kernels: hold the fused Q2_K/Q3_K dequant-matmul kernel against its
-   plain PyTorch version at tinyllama-1.1b's five (K, N) projection
-   shapes, at decode M (``max_slots``) and prefill M (``prefill_batch *
-   prefill_chunk``), with f32 and bf16 outputs; check that row 0 of an
-   M=33 product equals the M=1 product bit for bit; and check that the
-   reduced model's logits on the card agree with the CPU's plain path.
-3. serve: full-width tinyllama-1.1b from random weights (seeded), packed
-   with paper_llama_mix on the card, serves the paper's Table IV scenario
-   (8 requests, 6-token prompts, 10 new tokens, 4 slots) through the
-   port's Engine. The kernel launch counts are zeroed just before and
-   read just after; every forward must launch 45 q2_k + 110 q3_k kernels.
-   Greedy tokens must equal the engine's own generate_reference.
-4. timing: the kernel's time for one forward's launches of each variant,
-   at decode and prefill M, beside its bound, the plain version's time
-   and torch.matmul on pre-dequantized bf16 weights.
+1. build: compile every CUDA source of the port with nvcc (one process a
+   source, all at once), from the checkout's sources, and print the
+   build time.
+2. kernels: hold every kernel against its plain PyTorch version on the
+   card. The fused dequant-matmul: Q2_K/Q3_K at tinyllama-1.1b's five
+   (K, N) projection shapes at decode M (``max_slots``) and slice-1
+   prefill M (``prefill_batch * prefill_chunk`` = 64), Q3_K also at
+   slice-2 prefill M (512); Q4_K/Q6_K at wv's
+   (2048, 256), w_down's (5632, 2048) and the LM head's (2048, 32000) at
+   decode M and slice-2 prefill M (512); f32 and bf16 outputs; row 0 of
+   an M=33 product equals the M=1 product bit for bit. The fused prefill
+   attention at the serving shape (B=4, C=128, H=32, KH=4, D=64,
+   T=1024+128) with empty (-1) ring slots, at D=128, with a sliding window
+   and with a softcap, f32 and bf16, on visible rows; batch row 0 of a B=4
+   call equals the B=1 call bit for bit. The reduced model's logits on the
+   card against the CPU's plain path, on both serving paths.
+3. serve, slice 1: full-width tinyllama-1.1b from random weights (seeded),
+   packed with paper_llama_mix on the card, serves the paper's Table IV
+   scenario (8 requests, 6-token prompts, 10 new tokens, 4 slots) through
+   the port's Engine with the naive prefill attention. The launch counts
+   are zeroed just before and read just after; every forward must launch
+   45 q2_k + 110 q3_k kernels and no attention kernel. Greedy tokens must
+   equal the engine's own generate_reference.
+4. timing, slice 1: the matmul kernel's time for one forward's launches of
+   each variant, at decode and prefill M, beside its bound, the plain
+   version's time and torch.matmul on pre-dequantized bf16 weights.
+5. serve, slice 2: the same weights packed with extended_mix and
+   ``attn_impl="fused"``; 8 requests with prompts of 256 to 512 tokens
+   (seeded), 32 new tokens, 4 slots, 128-token prefill chunks, a
+   1024-slot ring. Every forward must launch 110 q3_k + 44 q4_k + 1 q6_k
+   kernels and no q2_k; every prefill-chunk forward 22 attention kernels
+   and every decode forward none. Greedy tokens must equal
+   generate_reference.
+6. timing, slice 2: Q3_K/Q4_K/Q6_K as in phase 4 on this layout
+   (prefill M 512), and the
+   attention kernel's time for the 22 launches of one prefill-chunk
+   forward beside its bound, the plain version's time and
+   ``scaled_dot_product_attention`` with the equivalent boolean mask.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +64,8 @@ BF16_FLOPS_PER_S = 989e12
 
 TOL_F32 = 1e-5          # kernel vs plain, f32 out: summation order only
 TOL_BF16 = 2.0 ** -7    # bf16 out: one bf16 ulp at the output's max
+TOL_ATTN = 5e-6         # attention, f32 out, visible rows: the reference's
+                        # own kernel-vs-naive tolerance (f32 order, tiles)
 TOL_MODEL = 2.0 ** -7   # reduced model, card vs CPU: bf16 input flips
 
 # tinyllama-1.1b's (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, lm_head
@@ -53,6 +76,22 @@ SERVE = dict(max_new_tokens=10, max_slots=4, decode_chunk=10, cache_len=64,
 N_REQUESTS, PROMPT_LEN = 8, 6
 M_DECODE = SERVE["max_slots"]
 M_PREFILL = SERVE["prefill_batch"] * SERVE["prefill_chunk"]
+
+# slice 2: extended_mix with the fused prefill attention, real prompts
+SHAPES2 = ((2048, 256), (5632, 2048), (2048, 32000))   # wv, w_down, lm_head
+SERVE2 = dict(max_new_tokens=32, max_slots=4, decode_chunk=32,
+              cache_len=1024, prefill_batch=4, prefill_chunk=128,
+              prefill_bucket=128)
+PROMPT_RANGE2 = (256, 512)
+M_PREFILL2 = SERVE2["prefill_batch"] * SERVE2["prefill_chunk"]
+# (B, C, H, KH, D, ring T): the serving shape of one prefill chunk
+ATTN_SERVE = (SERVE2["prefill_batch"], SERVE2["prefill_chunk"], 32, 4, 64,
+              SERVE2["cache_len"])
+# each variant at the M of every path that runs it: q3_k is on both
+MATMUL_CASES = (("q2_k", SHAPES, (M_DECODE, M_PREFILL)),
+                ("q3_k", SHAPES, (M_DECODE, M_PREFILL, M_PREFILL2)),
+                ("q4_k", SHAPES2, (M_DECODE, M_PREFILL2)),
+                ("q6_k", SHAPES2, (M_DECODE, M_PREFILL2)))
 
 
 def fail(msg: str) -> None:
@@ -82,16 +121,16 @@ def phase_build(build):
 
 
 def phase_kernels(torch, Q, PB, dev):
-    """Kernel vs plain at the main path's shapes; returns max abs error
-    (f32 output) per variant."""
+    """Matmul kernel vs plain at the main paths' shapes; returns max abs
+    error (f32 output) per variant."""
     g = torch.Generator(device=dev).manual_seed(1)
     max_abs = {}
-    for variant in PB.VARIANTS:
+    for variant, shapes, ms in MATMUL_CASES:
         worst = 0.0
-        for (K, N) in SHAPES:
+        for (K, N) in shapes:
             w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
             t = Q.quantize(variant, w)
-            for M in (M_DECODE, M_PREFILL):
+            for M in ms:
                 x = torch.randn(M, K, generator=g, device=dev).bfloat16()
                 y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
                 ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
@@ -118,14 +157,84 @@ def phase_kernels(torch, Q, PB, dev):
     return max_abs
 
 
+def attn_inputs(torch, dev, B, C, H, KH, D, T_ring, start, dtype, g,
+                pad=0):
+    """One prefill chunk's attention problem as the engine builds it: the
+    ring holds positions [0, start) at their slots (the other slots are
+    empty, -1), the chunk's C keys follow with positions start.., and the
+    last ``pad`` columns of batch row 0 are right-padding (-1 keys)."""
+    T = T_ring + C
+    q = torch.randn(B, C, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, T, KH, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, T, KH, D, generator=g, device=dev).to(dtype)
+    slots = torch.arange(T_ring, device=dev)
+    ring = torch.where(slots < start, slots, torch.full_like(slots, -1))
+    q_pos = (start + torch.arange(C, device=dev)).expand(B, C)
+    new = q_pos.clone()
+    if pad:
+        new[0, C - pad:] = -1
+    kv_pos = torch.cat([ring.expand(B, T_ring), new], 1)
+    return (q, k, v, q_pos.to(torch.int32).contiguous(),
+            kv_pos.to(torch.int32).contiguous())
+
+
+def visible_rows(qp, kp, window):
+    vis = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+    if window:
+        vis = vis & (kp[:, None, :] > qp[:, :, None] - window)
+    return vis
+
+
+def phase_attention(torch, PA, dev):
+    """Attention kernel vs plain; returns max abs error (f32 output)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, C, H, KH, D, T_ring = ATTN_SERVE
+    cases = (("serve", (B, C, H, KH, D, T_ring, 256), {}),
+             ("serve, first chunk", (B, C, H, KH, D, T_ring, 0), {}),
+             ("D=128", (2, 64, 16, 2, 128, 256, 192), {}),
+             ("window 200", (2, C, H, KH, D, T_ring, 384),
+              {"window": 200}),
+             ("softcap 30", (2, C, H, KH, D, T_ring, 256),
+              {"softcap": 30.0}))
+    worst = 0.0
+    for name, shape, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = attn_inputs(torch, dev, *shape, dtype, g,
+                                          pad=17)
+            y = PA.prefill_attn_cuda(q, k, v, qp, kp, **kw)
+            ref = PA.prefill_attn_plain(q, k, v, qp, kp, **kw)
+            torch.cuda.synchronize()
+            vis = visible_rows(qp, kp, kw.get("window")).any(-1)
+            err = rel_err(y[vis], ref[vis])
+            tol = TOL_ATTN if dtype == torch.float32 else TOL_BF16
+            print(f"[kernels] prefill_attn {name} {tuple(q.shape)} x "
+                  f"T={k.shape[1]} {dtype}: rel {err:.2e} (tol {tol:.1e}) "
+                  f"on {int(vis.sum())} visible rows of "
+                  f"{vis.numel()}", flush=True)
+            check(bool(torch.isfinite(y[vis]).all()), "non-finite output")
+            check(err <= tol, f"prefill_attn {name} {dtype} error")
+            if dtype == torch.float32:
+                worst = max(worst, float((y - ref)[vis].abs().max()))
+    q, k, v, qp, kp = attn_inputs(torch, dev, B, C, H, KH, D, T_ring, 256,
+                                  torch.bfloat16, g)
+    full = PA.prefill_attn_cuda(q, k, v, qp, kp)
+    one = PA.prefill_attn_cuda(q[:1], k[:1], v[:1], qp[:1], kp[:1])
+    row_ok = torch.equal(full[:1], one)
+    print(f"[kernels] prefill_attn batch row 0 of B=4 == B=1 bit for bit: "
+          f"{row_ok}", flush=True)
+    check(row_ok, "prefill_attn: a batch row depends on B")
+    return worst
+
+
 def phase_small_model(torch, get_arch, get_policy, quantize_params,
-                      to_device, T, dev):
+                      to_device, T, dev, policy, attn_impl):
     """Reduced tinyllama in f32: prefill + two decode steps through the
-    kernel on the card against the plain path on the CPU."""
-    cfg = get_arch("tinyllama-1.1b", reduced=True).replace(dtype="float32")
+    kernels on the card against the plain path on the CPU."""
+    cfg = get_arch("tinyllama-1.1b", reduced=True).replace(
+        dtype="float32", attn_impl=attn_impl)
     params = T.init_params(cfg, torch.Generator().manual_seed(2),
                            device="cpu")
-    qp, _ = quantize_params(params, get_policy("paper_llama_mix"))
+    qp, _ = quantize_params(params, get_policy(policy))
     qg = to_device(qp, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 8),
                          generator=torch.Generator().manual_seed(3))
@@ -147,60 +256,76 @@ def phase_small_model(torch, get_arch, get_policy, quantize_params,
             nxt = nxt + 1
         outs[name] = [lg.cpu() for lg in logits]
     errs = [rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
-    print(f"[kernels] reduced model logits, card vs CPU plain path: rel "
-          f"{max(errs):.2e} (tol {TOL_MODEL:.2e})", flush=True)
+    print(f"[kernels] reduced model ({policy}, attn_impl={attn_impl}) "
+          f"logits, card vs CPU plain path: rel {max(errs):.2e} (tol "
+          f"{TOL_MODEL:.2e})", flush=True)
     check(max(errs) <= TOL_MODEL, "reduced model disagrees with the CPU")
     check(all(bool(torch.isfinite(lg).all()) for lg in outs["cuda"]),
           "non-finite logits")
 
 
-def phase_serve(torch, np, cfg, qp, Engine, ServeConfig, PB, T, dev):
-    eng = Engine(cfg, qp, ServeConfig(**SERVE), device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
-               for _ in range(N_REQUESTS)]
-    eng.generate(prompts[:M_DECODE])            # warm-up: allocator, cuBLAS
+def phase_serve(torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev, tag,
+                scfg, prompts, per_forward, attn_per_prefill):
+    """Serve ``prompts`` through the port's Engine (the main path) with the
+    launch counts zeroed just before and read just after; every forward
+    must launch ``per_forward`` matmul kernels per variant, every
+    prefill-chunk forward ``attn_per_prefill`` attention kernels."""
+    eng = Engine(cfg, qp, ServeConfig(**scfg), device=dev)
+    slots = scfg["max_slots"]
+    eng.generate(prompts[:slots])               # warm-up: allocator, cuBLAS
     torch.cuda.synchronize()
 
     PB.reset_launches()
+    PA.reset_launches()
     t0 = time.perf_counter()
     results = eng.generate(prompts)             # the main path
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(PB.launches)
+    attn = PA.launches["prefill_attn"]
     s = dict(eng.stats)
 
-    fwd = s["forwards"]
-    print(f"[serve] {len(results)} requests in {wall:.3f}s: prefill "
-          f"{s['prefill_tok_per_s']:.1f} tok/s ({s['prefill_groups']} "
-          f"groups), decode {s['tok_per_s']:.1f} tok/s, {s['host_syncs']} "
-          f"host syncs, {fwd} forwards", flush=True)
+    fwd, pfwd = s["forwards"], s["prefill_forwards"]
+    print(f"[{tag}] {len(results)} requests ({s['prefill_tokens']} prompt "
+          f"tokens) in {wall:.3f}s: prefill {s['prefill_tok_per_s']:.1f} "
+          f"tok/s ({s['prefill_groups']} groups), decode "
+          f"{s['tok_per_s']:.1f} tok/s, {s['host_syncs']} host syncs, "
+          f"{fwd} forwards ({pfwd} prefill chunks)", flush=True)
     for i, toks in enumerate(results):
-        print(f"[serve] request {i}: {len(toks)} tokens {toks}", flush=True)
+        print(f"[{tag}] request {i} ({len(prompts[i])}-token prompt): "
+              f"{len(toks)} tokens {toks}", flush=True)
     per_fwd = {v: launches[v] / max(fwd, 1) for v in PB.VARIANTS}
-    print(f"[serve] kernel launches: {launches} = {per_fwd} per forward",
-          flush=True)
-    check(fwd > 0 and launches == {"q2_k": 45 * fwd, "q3_k": 110 * fwd},
-          f"expected 45 q2_k + 110 q3_k launches per forward, got "
-          f"{launches} over {fwd} forwards")
-    check(all(len(t) == SERVE["max_new_tokens"] for t in results),
-          "a request did not get its 10 tokens")
+    print(f"[{tag}] kernel launches: {launches} = {per_fwd} per forward; "
+          f"prefill_attn {attn} = {attn / max(pfwd, 1)} per prefill-chunk "
+          f"forward", flush=True)
+    want = {v: per_forward.get(v, 0) * fwd for v in PB.VARIANTS}
+    check(fwd > 0 and launches == want,
+          f"expected {per_forward} launches per forward, got {launches} "
+          f"over {fwd} forwards")
+    check(pfwd > 0 and attn == attn_per_prefill * pfwd,
+          f"expected {attn_per_prefill} prefill_attn launches per "
+          f"prefill-chunk forward and none per decode forward, got {attn} "
+          f"over {pfwd} prefill-chunk and {fwd - pfwd} decode forwards")
+    budget = scfg["max_new_tokens"]
+    check(all(len(t) == budget for t in results),
+          f"a request did not get its {budget} tokens")
     check(all(0 <= x < cfg.vocab_size for t in results for x in t),
           "token out of vocabulary")
-    for lo in range(0, N_REQUESTS, M_DECODE):
-        ref = eng.generate_reference(prompts[lo:lo + M_DECODE])
-        check(ref == results[lo:lo + M_DECODE],
+    for lo in range(0, len(prompts), slots):
+        ref = eng.generate_reference(prompts[lo:lo + slots])
+        check(ref == results[lo:lo + slots],
               f"requests {lo}..: generate != generate_reference")
-    print("[serve] greedy tokens == generate_reference: True", flush=True)
+    print(f"[{tag}] greedy tokens == generate_reference: True", flush=True)
 
+    n = min(len(prompts[0]), 16)
     cache = T.init_cache(cfg, 1, 16, device=dev)
     h, _ = T.prefill_chunk(qp, cfg, cache, tokens=torch.tensor(
-        [prompts[0]], device=dev), start=0,
-        lengths=torch.tensor([PROMPT_LEN], device=dev))
-    logits = T.lm_logits(qp, cfg, h[:, PROMPT_LEN - 1])
+        [prompts[0][:n]], device=dev), start=0,
+        lengths=torch.tensor([n], device=dev))
+    logits = T.lm_logits(qp, cfg, h[:, n - 1])
     check(logits.shape == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    return launches, s
+    return launches, attn, s
 
 
 def _device_ms(torch, fn, reps):
@@ -226,22 +351,25 @@ def _device_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def phase_timing(torch, qp, cfg, PB, Q, dev):
+def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill):
     """Per variant, one forward's launches at decode and prefill M."""
     layers = qp["layers"]
-    mats = {"q2_k": [], "q3_k": []}
+    mats = {v: [] for v in variants}
     for blk, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                       ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
                       ("mlp", "w_down")):
         t = layers[blk][name]
-        mats[t.variant] += [(t.layer(i), False) for i in range(cfg.n_layers)]
-    mats[qp["lm_head"].variant].append((qp["lm_head"], True))
+        if t.variant in mats:
+            mats[t.variant] += [(t.layer(i), False)
+                                for i in range(cfg.n_layers)]
+    if qp["lm_head"].variant in mats:
+        mats[qp["lm_head"].variant].append((qp["lm_head"], True))
     g = torch.Generator(device=dev).manual_seed(4)
     out = {}
     for variant, ws in mats.items():
         dense = [Q.dequantize(t, torch.bfloat16) for t, _ in ws]
         res = {}
-        for phase, M in (("decode", M_DECODE), ("prefill", M_PREFILL)):
+        for phase, M in (("decode", M_DECODE), ("prefill", m_prefill)):
             # the LM head runs on one gathered row per sequence
             ms_ = [M_DECODE if head else M for _, head in ws]
             xs = {(m, t.shape[0]): torch.randn(
@@ -266,7 +394,7 @@ def phase_timing(torch, qp, cfg, PB, Q, dev):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 launches_per_forward=len(jobs), bytes=nbytes, flops=flops)
-            print(f"[timing] {variant} {phase} forward ({len(jobs)} "
+            print(f"[{tag}] {variant} {phase} forward ({len(jobs)} "
                   f"launches, M={M}): kernel {kern:.3f} ms, bound "
                   f"{res[phase]['bound_ms']:.3f} ms ({res[phase]['bound_by']}"
                   f", {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
@@ -275,6 +403,71 @@ def phase_timing(torch, qp, cfg, PB, Q, dev):
         del dense
         out[variant] = res
     return out
+
+
+def phase_attn_timing(torch, PA, n_layers, dev):
+    """The 22 attention launches of one prefill-chunk forward at the
+    serving shape: the third 128-token chunk of a 512-token prompt (the
+    ring holds positions 0..255), different K/V per layer as the ring
+    has, so the 22 calls stream their K/V from HBM and not the 50 MB L2."""
+    import torch.nn.functional as Fn
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, C, H, KH, D, T_ring = ATTN_SERVE
+    jobs = [attn_inputs(torch, dev, B, C, H, KH, D, T_ring, 256,
+                        torch.bfloat16, g) for _ in range(n_layers)]
+    kern = _device_ms(torch, lambda: [PA.prefill_attn_cuda(*j)
+                                      for j in jobs], 10)
+    plain = _device_ms(torch, lambda: [PA.prefill_attn_plain(*j)
+                                       for j in jobs], 3)
+    # the yardstick: one SDPA call per layer on the same inputs, heads
+    # first, with the equivalent boolean mask (never called by the port)
+    sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             visible_rows(qp, kp, None)[:, None])
+            for q, k, v, qp, kp in jobs]
+    lib = _device_ms(torch, lambda: [Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=True) for q, k, v, m in sdpa], 10)
+    # the bytes this data needs: q, the bf16 out and both position
+    # vectors in full, K and V only at the slots some query of the batch
+    # row can see (the empty ring slots are never read)
+    nbytes = sum(2 * q.numel() * q.element_size()
+                 + (qp.numel() + kp.numel()) * kp.element_size()
+                 + 2 * int(visible_rows(qp, kp, None).any(1).sum())
+                 * KH * D * k.element_size()
+                 for q, k, _, qp, kp in jobs)
+    # the work this data needs: 4 * D flops per visible (query, key) pair
+    # and head (q.k and p.v)
+    pairs = sum(int(visible_rows(qp, kp, None).sum())
+                for _, _, _, qp, kp in jobs)
+    flops = pairs * H * 4 * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    res = dict(ms=kern, plain_ms=plain, library_ms=lib,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               launches_per_forward=len(jobs), bytes=nbytes, flops=flops)
+    print(f"[timing2] prefill_attn prefill-chunk forward ({len(jobs)} "
+          f"launches, B={B} C={C} H={H} KH={KH} D={D} T={T_ring + C}): "
+          f"kernel {kern:.3f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP), plain {plain:.3f} ms, scaled_dot_product_attention "
+          f"{lib:.3f} ms", flush=True)
+    return res
+
+
+def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                    get_policy, policy, dev, expect):
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    qp, report = quantize_params(params, get_policy(policy))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts = variant_counts(report, qp)
+    print(f"[pack] full-width {cfg.name} under {policy} packed in "
+          f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
+    check(counts == expect, f"{policy} layout: {counts}, expected {expect}")
+    return qp
 
 
 def main() -> None:
@@ -294,6 +487,7 @@ def main() -> None:
                                           variant_counts)
     from repro_torch.kernels import _build
     from repro_torch.kernels import bfp_matmul as PB
+    from repro_torch.kernels import prefill_attn as PA
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -303,24 +497,44 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build(_build)
     max_abs = phase_kernels(torch, Q, PB, dev)
-    phase_small_model(torch, get_arch, get_policy, quantize_params,
-                      to_device, T, dev)
+    max_abs["prefill_attn"] = phase_attention(torch, PA, dev)
+    for policy, attn_impl in (("paper_llama_mix", "auto"),
+                              ("extended_mix", "fused")):
+        phase_small_model(torch, get_arch, get_policy, quantize_params,
+                          to_device, T, dev, policy, attn_impl)
 
+    # slice 1: paper_llama_mix, naive prefill attention
     cfg = get_arch("tinyllama-1.1b")
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
-    qp, report = quantize_params(params, get_policy("paper_llama_mix"))
-    del params
-    torch.cuda.synchronize()
+    qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                         get_policy, "paper_llama_mix", dev,
+                         {"q2_k": 45, "q3_k": 110})
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
+               for _ in range(N_REQUESTS)]
+    launches1, attn1, _ = phase_serve(
+        torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev, "serve", SERVE,
+        prompts, {"q2_k": 45, "q3_k": 110}, 0)
+    timing = phase_timing(torch, qp, cfg, PB, Q, dev, "timing",
+                          ("q2_k", "q3_k"), M_PREFILL)
+    del qp
     torch.cuda.empty_cache()
-    counts = variant_counts(report, qp)
-    print(f"[serve] full-width {cfg.name} packed in "
-          f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
-    check(counts == {"q2_k": 45, "q3_k": 110}, f"Table III layout: {counts}")
-    launches, _ = phase_serve(torch, np, cfg, qp, Engine, ServeConfig, PB, T,
-                              dev)
-    timing = phase_timing(torch, qp, cfg, PB, Q, dev)
+
+    # slice 2: extended_mix, fused prefill attention, real prompt lengths
+    cfg2 = cfg.replace(attn_impl="fused")
+    qp = pack_full_width(torch, cfg2, T, quantize_params, variant_counts,
+                         get_policy, "extended_mix", dev,
+                         {"q3_k": 110, "q4_k": 44, "q6_k": 1})
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_RANGE2[0], PROMPT_RANGE2[1] + 1, N_REQUESTS)
+    prompts2 = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                for n in lens]
+    launches2, attn2, _ = phase_serve(
+        torch, cfg2, qp, Engine, ServeConfig, PB, PA, T, dev, "serve2",
+        SERVE2, prompts2, {"q3_k": 110, "q4_k": 44, "q6_k": 1},
+        cfg.n_layers)
+    timing2 = phase_timing(torch, qp, cfg2, PB, Q, dev, "timing2",
+                           ("q3_k", "q4_k", "q6_k"), M_PREFILL2)
+    attn_timing = phase_attn_timing(torch, PA, cfg.n_layers, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -328,17 +542,37 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     kernels = []
     for v in PB.VARIANTS:
-        dec = timing[v]["decode"]
+        t = timing[v] if v in timing else timing2[v]
+        dec = t["decode"]
         kernels.append({
             "name": f"bfp_matmul_{v}", "route": "cuda",
             "source": "src/repro_torch/csrc/bfp_matmul.cu",
             "replaces": "src/repro/kernels/bfp_matmul.py:89",
-            "launches": launches[v], "max_abs_err": max_abs[v],
+            "launches": launches1[v] + launches2[v],
+            "launches_by_path": {"paper_llama_mix": launches1[v],
+                                 "extended_mix_fused": launches2[v]},
+            "max_abs_err": max_abs[v],
             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
             "library_ms": dec["library_ms"],
             "per": "the launches of one decode forward (M=max_slots)",
-            "prefill": timing[v]["prefill"]})
+            "prefill": t["prefill"]})
+        if v in timing and v in timing2:    # on both paths' layouts
+            kernels[-1]["extended_mix"] = timing2[v]
+    kernels.append({
+        "name": "prefill_attn", "route": "cuda",
+        "source": "src/repro_torch/csrc/prefill_attn.cu",
+        "replaces": "src/repro/kernels/prefill_attn.py:80",
+        "launches": attn1 + attn2,
+        "launches_by_path": {"paper_llama_mix": attn1,
+                             "extended_mix_fused": attn2},
+        "max_abs_err": max_abs["prefill_attn"],
+        "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
+        "bound_ms": attn_timing["bound_ms"],
+        "bound_by": attn_timing["bound_by"],
+        "library_ms": attn_timing["library_ms"],
+        "per": "the launches of one prefill-chunk forward (22 layers)",
+        "bytes": attn_timing["bytes"], "flops": attn_timing["flops"]})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

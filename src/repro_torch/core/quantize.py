@@ -2,14 +2,15 @@
 
 Counterpart of ``repro.core.quantize``. Payloads are bit-exact against
 the reference: the arithmetic runs in float32 in the reference's order
-(``/ 3.0``, ``/ 15.0``, ``/ 31.0``, multiply by ``_safe_inv``, cast to
-float16 last), and ``torch.round`` rounds half to even as ``jnp.round``
-does. Every function takes ``(..., K, N)`` weights: leading axes (a
-stacked layer axis) pass through, which is what the reference's ``vmap``
-over stacked layers gives.
+(``/ qmax``, ``/ 15.0``, ``/ 31.0``, ``/ 63.0``, ``/ 127.0``, multiply
+by ``_safe_inv``, cast to float16 last), and ``torch.round`` rounds half
+to even as ``jnp.round`` does. Every function takes ``(..., K, N)``
+weights: leading axes (a stacked layer axis) pass through, which is what
+the reference's ``vmap`` over stacked layers gives.
 
-This slice ports the paper's two native variants, Q2_K and Q3_K. The
-other registered formats raise ``NotImplementedError`` until their slice.
+The port has the paper's two native variants, Q2_K and Q3_K, and the
+extended k-quants Q4_K, Q5_K and Q6_K. The other registered formats
+(Q3_K_O, Q4_0, Q8_0) raise ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -155,11 +156,110 @@ def dequantize_q3_k(t: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Q4_K / Q5_K (affine, 32-row blocks, 6-bit scales and mins)
+# ---------------------------------------------------------------------------
+
+def _quantize_q45(w: torch.Tensor, variant: str, qmax: int) -> QTensor:
+    K, N = _check_k(w)
+    lead = w.shape[:-2]
+    nsb = K // 256
+    x = w.to(torch.float32).reshape(*lead, nsb, 8, 32, N)    # (sb, blk, in, N)
+    bmax = x.amax(dim=-2)
+    bmin = x.amin(dim=-2)
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    min_f = torch.maximum(zero, -bmin)                       # (sb, 8, N) >= 0
+    scale_f = torch.maximum(bmax + min_f, zero) / qmax
+    d = scale_f.amax(dim=-2) / 63.0                          # (sb, N)
+    dmin = min_f.amax(dim=-2) / 63.0
+    sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 63)
+    m_q = torch.clamp(_nearest(min_f * _safe_inv(dmin).unsqueeze(-2)), 0, 63)
+    eff_sc = d.unsqueeze(-2) * sc_q                          # (sb, 8, N)
+    eff_mn = dmin.unsqueeze(-2) * m_q
+    q = torch.clamp(_nearest((x + eff_mn.unsqueeze(-2))
+                             * _safe_inv(eff_sc).unsqueeze(-2)), 0, qmax)
+    q = q.to(torch.uint8).reshape(*lead, K, N)
+    data = dict(
+        qs=slab_pack(q & 15, 4, 256),
+        scales=sc_q.to(torch.uint8).reshape(*lead, K // 32, N),
+        mins=m_q.to(torch.uint8).reshape(*lead, K // 32, N),
+        d=d.to(torch.float16), dmin=dmin.to(torch.float16))
+    if qmax > 15:
+        data["qh"] = slab_pack(q >> 4, 1, 256)
+    return QTensor(variant, (K, N), data)
+
+
+def quantize_q4_k(w: torch.Tensor) -> QTensor:
+    return _quantize_q45(w, "q4_k", 15)
+
+
+def quantize_q5_k(w: torch.Tensor) -> QTensor:
+    return _quantize_q45(w, "q5_k", 31)
+
+
+def dequantize_q45(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    """Q4_K and Q5_K: (d * sc) * q - dmin * mn over 32-row blocks."""
+    K, N = t.shape
+    nsb = K // 256
+    lead = t.data["d"].shape[:-2]
+    q = slab_unpack(t.data["qs"], 4, 256)
+    if "qh" in t.data:
+        q = q + (slab_unpack(t.data["qh"], 1, 256) << 4)
+    q = q.to(torch.float32).reshape(*lead, nsb, 8, 32, N)
+    sc = t.data["scales"].to(torch.float32).reshape(*lead, nsb, 8, N)
+    mn = t.data["mins"].to(torch.float32).reshape(*lead, nsb, 8, N)
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)          # (sb, 1, N)
+    dmin = t.data["dmin"].to(torch.float32).unsqueeze(-2)
+    w = (d * sc).unsqueeze(-2) * q - (dmin * mn).unsqueeze(-2)
+    return w.reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Q6_K (symmetric, 16-row blocks, signed int8 block scales)
+# ---------------------------------------------------------------------------
+
+def quantize_q6_k(w: torch.Tensor) -> QTensor:
+    K, N = _check_k(w)
+    lead = w.shape[:-2]
+    nsb = K // 256
+    x = w.to(torch.float32).reshape(*lead, nsb, 16, 16, N)
+    amax = x.abs().amax(dim=-2)                              # (sb, 16, N)
+    scale_f = amax / 32.0
+    d = scale_f.amax(dim=-2) / 127.0                         # (sb, N)
+    sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)),
+                       -128, 127)
+    eff = d.unsqueeze(-2) * sc_q
+    q = torch.clamp(_nearest(x * _safe_inv(eff).unsqueeze(-2)), -32, 31) + 32
+    q = q.reshape(*lead, K, N).to(torch.uint8)               # [0, 63]
+    return QTensor("q6_k", (K, N), dict(
+        ql=slab_pack(q & 15, 4, 256),
+        qh=slab_pack(q >> 4, 2, 256),
+        scales=sc_q.to(torch.int8).reshape(*lead, K // 16, N),
+        d=d.to(torch.float16)))
+
+
+def dequantize_q6_k(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    nsb = K // 256
+    lead = t.data["d"].shape[:-2]
+    q = (slab_unpack(t.data["ql"], 4, 256)
+         + (slab_unpack(t.data["qh"], 2, 256) << 4)).to(torch.float32) - 32.0
+    q = q.reshape(*lead, nsb, 16, 16, N)
+    sc = t.data["scales"].to(torch.float32).reshape(*lead, nsb, 16, N)
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)
+    w = (d * sc).unsqueeze(-2) * q
+    return w.reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-_QUANTIZE = {"q2_k": quantize_q2_k, "q3_k": quantize_q3_k}
-_DEQUANTIZE = {"q2_k": dequantize_q2_k, "q3_k": dequantize_q3_k}
+_QUANTIZE = {"q2_k": quantize_q2_k, "q3_k": quantize_q3_k,
+             "q4_k": quantize_q4_k, "q5_k": quantize_q5_k,
+             "q6_k": quantize_q6_k}
+_DEQUANTIZE = {"q2_k": dequantize_q2_k, "q3_k": dequantize_q3_k,
+               "q4_k": dequantize_q45, "q5_k": dequantize_q45,
+               "q6_k": dequantize_q6_k}
 
 
 def _not_ported(variant: str):

@@ -39,6 +39,22 @@ SIGNATURES = {
         "bfp_matmul_q3_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
                             _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, scales, mins, d, dmin, out, out_dtype, M, K, N, stream
+        "bfp_matmul_q4_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_void_p, _c_void_p, _c_void_p, _c_int,
+                            _c_int, _c_int, _c_int, _c_void_p],
+        # x, ql, qh, scales, d, out, out_dtype, M, K, N, stream
+        "bfp_matmul_q6_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_void_p, _c_void_p, _c_int,
+                            _c_int, _c_int, _c_int, _c_void_p],
+    },
+    "prefill_attn": {
+        # q, k, v, q_pos, kv_pos, out, q_dtype, kv_dtype, B, C, T, H, KH,
+        # D, window, scale, softcap, stream
+        "prefill_attn": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                         _c_void_p, _c_void_p, _c_int, _c_int,
+                         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                         _c_int, ctypes.c_float, ctypes.c_float, _c_void_p],
     },
 }
 

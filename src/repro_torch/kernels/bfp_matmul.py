@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas``). The
 kernel (``csrc/bfp_matmul.cu``, CUDA C++ for sm_90a) reads a
-reference-packed Q2_K or Q3_K ``QTensor`` as it is, dequantizes each
-super-block on chip and accumulates in f32; the dequantized weight never
-reaches device memory. Its source note gives its bound and design.
+reference-packed Q2_K, Q3_K, Q4_K or Q6_K ``QTensor`` as it is,
+dequantizes each super-block on chip and accumulates in f32; the
+dequantized weight never reaches device memory. Its source note gives
+its bound and design.
 
 ``bfp_matmul_plain`` is the same function in plain PyTorch: dequantize to
 f32, round to bf16 and back, one f32 matmul per row, one cast. CPU tensors
@@ -24,7 +25,7 @@ import torch
 from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.kernels import _build
 
-VARIANTS = ("q2_k", "q3_k")
+VARIANTS = ("q2_k", "q3_k", "q4_k", "q6_k")
 launches: Dict[str, int] = {v: 0 for v in VARIANTS}
 
 # output dtype codes of the C interface
@@ -35,6 +36,11 @@ _PAYLOADS = {
              ("d", torch.float16, 256), ("dmin", torch.float16, 256)),
     "q3_k": (("qs", torch.uint8, 4), ("hmask", torch.uint8, 8),
              ("scales", torch.uint8, 16), ("d", torch.float16, 256)),
+    "q4_k": (("qs", torch.uint8, 2), ("scales", torch.uint8, 32),
+             ("mins", torch.uint8, 32), ("d", torch.float16, 256),
+             ("dmin", torch.float16, 256)),
+    "q6_k": (("ql", torch.uint8, 2), ("qh", torch.uint8, 4),
+             ("scales", torch.int8, 16), ("d", torch.float16, 256)),
 }
 
 
@@ -113,16 +119,10 @@ def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
         raise ValueError("x is not 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    p = {k: v.data_ptr() for k, v in t.data.items()}
-    oc = _OUT_CODE[out_dtype]
-    if t.variant == "q2_k":
-        err = lib.bfp_matmul_q2_k(xb.data_ptr(), p["qs"], p["scales"],
-                                  p["d"], p["dmin"], out.data_ptr(), oc,
-                                  M, K, N, stream)
-    else:
-        err = lib.bfp_matmul_q3_k(xb.data_ptr(), p["qs"], p["hmask"],
-                                  p["scales"], p["d"], out.data_ptr(), oc,
-                                  M, K, N, stream)
+    ptrs = [t.data[name].data_ptr() for name, _, _ in _PAYLOADS[t.variant]]
+    fn = getattr(lib, f"bfp_matmul_{t.variant}")
+    err = fn(xb.data_ptr(), *ptrs, out.data_ptr(), _OUT_CODE[out_dtype],
+             M, K, N, stream)
     if err != 0:
         raise RuntimeError(f"bfp_matmul_{t.variant} launch failed with "
                            f"cudaError_t {err} (M={M}, K={K}, N={N})")

@@ -4,6 +4,10 @@ queue of requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --policy paper_llama_mix --tokens 10 --requests 8 --slots 4
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy extended_mix --prompt-len 384 --prefill-chunk 128 \
+      --prefill-bucket 128 --cache-len 1024 --tokens 32
+
 The weights and prompts are random, drawn from seed 0. The model runs on the GPU
 (``--device cuda``, the default; it raises where there is none). Add
 ``--reduced --device cpu`` for a small run on the CPU through the
@@ -26,14 +30,13 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, ServeConfig
 
 SEED = 0            # random weights and prompts
-PROMPT_LEN = 6      # the paper's Table IV prompts
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--policy", default="paper_llama_mix",
+    ap.add_argument("--policy", default="default_serve_mix",
                     help="named policy from core.policy.POLICIES")
     ap.add_argument("--requests", type=int, default=4,
                     help="queue depth (may exceed --slots)")
@@ -42,6 +45,14 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk", type=int, default=0,
                     help="decode steps per host sync (0 = --tokens)")
     ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--prefill-batch", type=int, default=8,
+                    help="max requests per batched prefill group")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="tokens per prefill chunk (long prompts stream "
+                         "through it chunk by chunk)")
+    ap.add_argument("--prefill-bucket", type=int, default=16,
+                    help="prompt pad granularity")
+    ap.add_argument("--prompt-len", type=int, default=6)   # paper: 6 tokens
     ap.add_argument("--tokens", type=int, default=10)      # paper: 10 tokens
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -62,11 +73,14 @@ def main(argv=None) -> None:
 
     scfg = ServeConfig(max_new_tokens=args.tokens, cache_len=args.cache_len,
                        max_slots=args.slots,
-                       decode_chunk=args.chunk or args.tokens)
+                       decode_chunk=args.chunk or args.tokens,
+                       prefill_batch=args.prefill_batch,
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_bucket=args.prefill_bucket)
     engine = Engine(cfg, qp, scfg, device=dev)
     rng = np.random.default_rng(SEED)
     ids = [engine.submit([int(t) for t in rng.integers(0, cfg.vocab_size,
-                                                       PROMPT_LEN)])
+                                                       args.prompt_len)])
            for _ in range(args.requests)]
     results = engine.run()
     for rid in ids[:4]:

@@ -6,8 +6,10 @@ which case the matmul goes to ``kernels.ops.bfp_matmul`` (the CUDA kernel
 on the card). Shapes and layouts are the reference's:
 q ``(B, S, H, D)``, caches ``(B, T, KH, D)``, positions ``(B, S)``.
 
-Attention here is the reference's materializing ``naive`` path in f32.
-The fused prefill attention (``attn_impl="fused"``) is a later slice.
+Attention is the reference's materializing ``naive`` path in f32, or,
+for a prefill chunk with ``impl="fused"``, the fused flash-style kernel
+``kernels.prefill_attn.prefill_attn_fused`` (the CUDA kernel on the card,
+its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as Fn
 
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.prefill_attn import prefill_attn_fused
 
 NEG_INF = -1e30
 
@@ -118,15 +121,22 @@ def prefill_attention(q, k_cache, v_cache, slot_pos, k_new, v_new,
     (-1 empty); k_new/v_new: (B,C,KH,D) this chunk's keys/values;
     positions: (B,C) absolute; valid: (B,C) False on right-padding (those
     keys never win attention; their query outputs are garbage the caller
-    ignores)."""
-    if impl != "naive":
-        raise NotImplementedError(
-            f"prefill attention impl {impl!r} is not ported yet (the fused "
-            "kernel is a later slice); use 'naive'")
+    ignores).
+
+    ``impl="fused"`` routes the concatenated problem through
+    ``prefill_attn_fused`` (no (C, T) score materialization); the default
+    ``"naive"`` materializes the scores."""
+    if impl not in ("naive", "fused"):
+        raise ValueError(f"unknown prefill attention impl {impl!r}; known: "
+                         "naive, fused")
     kv_pos_new = torch.where(valid, positions, torch.full_like(positions, -1))
     k_all = torch.cat([k_cache, k_new.to(k_cache.dtype)], dim=1)
     v_all = torch.cat([v_cache, v_new.to(v_cache.dtype)], dim=1)
     kv_pos = torch.cat([slot_pos, kv_pos_new], dim=1)
+    if impl == "fused":
+        return prefill_attn_fused(q, k_all, v_all, positions, kv_pos,
+                                  window=window, scale=scale,
+                                  softcap=softcap)
     return naive_attention(q, k_all, v_all, causal=True, window=window,
                            scale=scale, softcap=softcap,
                            q_positions=positions, kv_positions=kv_pos)

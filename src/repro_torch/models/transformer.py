@@ -253,6 +253,8 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     chunk's own keys, then the chunk's K/V land in the ring at
     ``position % T`` -- the same semantics as ``decode_step`` once per
     token, with MatMul-shaped batches. Requires C <= ring length.
+    ``cfg.attn_impl == "fused"`` takes the fused prefill attention (the
+    CUDA kernel on the card); any other value the naive path.
 
     Returns (final-norm hidden (B, C, d), cache updated in place)."""
     _check_family(cfg)
@@ -260,12 +262,16 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     positions = (start + torch.arange(C, dtype=torch.long,
                                       device=tokens.device))[None].expand(B, C)
     valid = positions < lengths[:, None]
-    return _masked_chunk(params, cfg, cache, tokens, positions, valid)
+    attn_impl = "fused" if cfg.attn_impl == "fused" else "naive"
+    return _masked_chunk(params, cfg, cache, tokens, positions, valid,
+                         attn_impl)
 
 
-def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid):
+def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
+                  attn_impl):
     """One (B, C) masked chunk forward against the ring, writing valid
-    columns at ``positions % T``."""
+    columns at ``positions % T``; ``attn_impl`` is the prefill attention's
+    ``impl``."""
     impl = cfg.kernel_impl
     B, C = tokens.shape
     T = cache["k"].shape[2]
@@ -293,7 +299,8 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid):
         o = L.prefill_attention(q, kc, vc, old_pos, k_chunk, v_chunk,
                                 positions, valid,
                                 window=cfg.sliding_window,
-                                softcap=cfg.attn_logit_softcap)
+                                softcap=cfg.attn_logit_softcap,
+                                impl=attn_impl)
         # in place, after the attention above read the pre-write ring
         kc[bidx, slot] = torch.where(vmask, k_chunk, kc[bidx, slot])
         vc[bidx, slot] = torch.where(vmask, v_chunk, vc[bidx, slot])

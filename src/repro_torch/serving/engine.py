@@ -150,6 +150,7 @@ class Engine:
         logits = T.lm_logits(self.params, self.cfg, hr)     # (G, V) f32
         sel = (last >= start) & (last < start + C)
         self.stats["forwards"] += 1
+        self.stats["prefill_forwards"] += 1
         return gcache, torch.where(sel[:, None], logits, last_logits)
 
     @staticmethod
@@ -215,6 +216,7 @@ class Engine:
     def _fresh_stats() -> Dict[str, float]:
         return dict(prefill_s=0.0, decode_s=0.0, tokens=0, tok_per_s=0.0,
                     host_syncs=0, admissions=0, chunks=0, forwards=0,
+                    prefill_forwards=0,
                     requests=0, prefill_groups=0, prefill_tokens=0,
                     prefill_tok_per_s=0.0, ttft_s=0.0,
                     ttft_p50_s=0.0, ttft_p99_s=0.0, queue_wait_s=0.0)

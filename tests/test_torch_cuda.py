@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip elsewhere: a CUDA
 kernel has no CPU mode. The file imports no JAX, so it also runs where
@@ -6,20 +6,29 @@ only the port is installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance, relative to the output's max magnitude, f32 output: 1e-5. The
-kernel and the plain version round x and w to bf16 alike and accumulate
-in f32; only the summation order differs.
+Tolerances, relative to the output's max magnitude:
+  * matmul, f32 output: 1e-5. The kernel and the plain version round x and
+    w to bf16 alike and accumulate in f32; only the summation order
+    differs.
+  * attention, f32 output: 5e-6 on visible rows, the reference's own
+    tolerance for its kernel against the naive path (f32 accumulation
+    order and the 32-key tiles of the kernel against the plain version's
+    256). bf16 output: 2**-7, one bf16 ulp at the max.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import quantize as PQ
 from repro_torch.kernels import bfp_matmul as PB
 from repro_torch.kernels import ops as PO
+from repro_torch.kernels import prefill_attn as PA
 
 torch.set_num_threads(2)
 
 TOL_F32 = 1e-5
+TOL_ATTN = 5e-6
+TOL_BF16 = 2.0 ** -7
 # (M, K, N): every row tile of the kernel (4, 8 and 16 rows) and ragged
 # column blocks (N a multiple of 16, not of 128)
 SHAPES = [(1, 256, 96), (3, 512, 320), (8, 768, 96), (33, 256, 320),
@@ -40,7 +49,7 @@ def _rel_err(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("variant", PB.VARIANTS)
 def test_kernel_matches_plain(cuda_device, variant):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     PB.reset_launches()
@@ -59,7 +68,7 @@ def test_kernel_matches_plain(cuda_device, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("variant", PB.VARIANTS)
 def test_kernel_rows_independent_of_m(cuda_device, variant):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn(33, 512, generator=g, device=cuda_device).bfloat16()
@@ -86,3 +95,67 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="N % 16"):
         PO.bfp_matmul(torch.zeros(2, 256, device=cuda_device), t8,
                       impl="cuda")
+
+
+def _attn_inputs(dev, B, C, T, H, KH, D, dtype, seed):
+    """Ring-style positions: a ring of T - C slots with empty (-1) and
+    scattered entries, then the chunk's own C keys."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, C, H, D), (B, T, KH, D),
+                                         (B, T, KH, D)))
+    start = T - C
+    ring = rng.integers(-1, start, (B, T - C))
+    chunk = np.broadcast_to(start + np.arange(C), (B, C))
+    kp = torch.from_numpy(np.concatenate([ring, chunk], 1).astype(np.int32))
+    qp = torch.from_numpy(np.ascontiguousarray(chunk).astype(np.int32))
+    return q, k, v, qp.to(dev), kp.to(dev)
+
+
+def _visible(qp, kp, window):
+    vis = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+    if window:
+        vis &= kp[:, None, :] > qp[:, :, None] - window
+    return vis.any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", PA.HEAD_DIMS)
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, None),
+                                            (None, 30.0)])
+def test_attention_kernel_matches_plain(cuda_device, D, window, softcap):
+    PA.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = _attn_inputs(cuda_device, 2, 40, 140, 8, 2, D,
+                                       dtype, seed=D)
+        y = PA.prefill_attn_fused(q, k, v, qp, kp, window=window,
+                                  softcap=softcap)
+        ref = PA.prefill_attn_plain(q, k, v, qp, kp, window=window,
+                                    softcap=softcap)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and y.shape == q.shape
+        vis = _visible(qp, kp, window)
+        tol = TOL_ATTN if dtype == torch.float32 else TOL_BF16
+        assert _rel_err(y[vis], ref[vis]) <= tol, dtype
+    assert PA.launches["prefill_attn"] == 2
+
+
+@pytest.mark.cuda
+def test_attention_kernel_batch_rows_independent(cuda_device):
+    q, k, v, qp, kp = _attn_inputs(cuda_device, 4, 33, 97, 4, 1, 64,
+                                   torch.bfloat16, seed=3)
+    full = PA.prefill_attn_cuda(q, k, v, qp, kp)
+    one = PA.prefill_attn_cuda(q[:1], k[:1], v[:1], qp[:1], kp[:1])
+    assert torch.equal(full[:1], one)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, qp, kp = _attn_inputs(cuda_device, 1, 8, 16, 4, 2, 64,
+                                   torch.float32, seed=4)
+    with pytest.raises(ValueError, match="head dims"):
+        PA.prefill_attn_cuda(q[..., :32], k[..., :32], v[..., :32], qp, kp)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        PA.prefill_attn_cuda(q.half(), k, v, qp, kp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        PA.prefill_attn_cuda(q.cpu(), k.cpu(), v.cpu(), qp.cpu(), kp.cpu())

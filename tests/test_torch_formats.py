@@ -1,10 +1,12 @@
 """The port's packing against the reference, bit for bit.
 
-Q2_K and Q3_K quantize/dequantize, the slab layout, the stacked
-``quantize_params`` tree of reduced tinyllama under ``paper_llama_mix``
-and its per-path report, and the mirrored configs, format registry and
-policies. Inputs come from a seeded numpy generator and go through both
-packages; payloads are compared as raw bytes.
+Q2_K, Q3_K, Q4_K, Q5_K and Q6_K quantize/dequantize (golden super-blocks
+included), the slab layout, the stacked ``quantize_params`` tree of
+reduced tinyllama under ``paper_llama_mix`` and its per-path report
+(``extended_mix``'s is in ``test_torch_extended.py``), and the mirrored
+configs, format registry and policies. Inputs come from a seeded numpy
+generator and go through both packages; payloads are compared as raw
+bytes.
 """
 import dataclasses
 
@@ -42,7 +44,10 @@ def _assert_qtensor_bytes(jt, pt):
         assert _same_bytes(np.asarray(jt.data[k]), pt.data[k].numpy()), k
 
 
-@pytest.mark.parametrize("variant", ["q2_k", "q3_k"])
+PORTED = ["q2_k", "q3_k", "q4_k", "q5_k", "q6_k"]
+
+
+@pytest.mark.parametrize("variant", PORTED)
 @pytest.mark.parametrize("shape", [(256, 96), (512, 320), (2, 256, 64)])
 def test_quantize_dequantize_bitexact(variant, shape):
     rng = np.random.default_rng([len(variant), variant == "q2_k", *shape])
@@ -57,6 +62,20 @@ def test_quantize_dequantize_bitexact(variant, shape):
     dj = np.asarray(JQ.dequantize(jt) if len(shape) == 2 else
                     jax.vmap(lambda t: JQ.dequantize(t))(jt))
     assert _same_bytes(dj, PQ.dequantize(pt).numpy())
+
+
+@pytest.mark.parametrize("variant", ["q4_k", "q5_k", "q6_k"])
+def test_tiny_scales_bitexact(variant):
+    """Weights at 1e-5: the fp16 super-scales d/dmin go subnormal, where
+    the cast order (codes from the f32 scale, fp16 cast last) decides
+    every byte."""
+    rng = np.random.default_rng(["q4_k", "q5_k", "q6_k"].index(variant))
+    w = (rng.standard_normal((512, 48)) * 1e-5).astype(np.float32)
+    pt = PQ.quantize(variant, torch.from_numpy(w))
+    jt = JQ.quantize(variant, jnp.asarray(w))
+    _assert_qtensor_bytes(jt, pt)
+    assert _same_bytes(np.asarray(JQ.dequantize(jt)),
+                       PQ.dequantize(pt).numpy())
 
 
 @pytest.mark.parametrize("bits,sb", [(1, 256), (2, 256), (4, 256), (2, 64)])
@@ -117,6 +136,61 @@ def test_golden_q3_k_superblock():
     np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)
 
 
+def test_golden_q4_k_superblock():
+    # the reference's hand-computed super-block (test_formats_golden.py):
+    # 8 blocks of 32, 6-bit scale code 63-8b (63 pins d = 0.25), 6-bit min
+    # code 8b+7 (63 pins dmin = 0.125); the in-block pattern [0..15]*2
+    # pins bmax/bmin to the exact affine grid ends
+    d, dmin = 0.25, 0.125
+    sc_q = 63 - 8 * np.arange(8)
+    m_q = 8 * np.arange(8) + 7
+    qpat = np.tile(np.arange(16), 2)
+    w1 = (d * sc_q)[:, None] * qpat[None, :] - (dmin * m_q)[:, None]
+    w = w1.reshape(256)[:, None] * (2.0 ** np.arange(2))[None, :]
+    t = PQ.quantize("q4_k", torch.tensor(w, dtype=torch.float32))
+    assert t.variant == "q4_k" and t.shape == (256, 2)
+    np.testing.assert_array_equal(
+        t.data["scales"].numpy(),
+        np.repeat(sc_q.astype(np.uint8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(
+        t.data["mins"].numpy(),
+        np.repeat(m_q.astype(np.uint8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(t.data["d"].float().numpy(), [[d, 2 * d]])
+    np.testing.assert_array_equal(t.data["dmin"].float().numpy(),
+                                  [[dmin, 2 * dmin]])
+    stored = np.repeat(np.tile(qpat, 8).astype(np.uint8)[:, None], 2, axis=1)
+    np.testing.assert_array_equal(
+        t.data["qs"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(stored), 4, 256)))
+    np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)   # exact
+
+
+def test_golden_q6_k_superblock():
+    # block b: int8 scale code 127-8b (127 pins d = 0.125); q in [-32, 31]
+    # with -32 present so amax/32 recovers the block scale exactly
+    d = 0.125
+    sc_q = 127 - 8 * np.arange(16)
+    qpat = np.array([-32, -16, -8, -4, -2, -1, 0, 1,
+                     2, 4, 8, 16, 24, 30, 31, -31])
+    w1 = ((d * sc_q)[:, None] * qpat[None, :]).reshape(256)
+    w = w1[:, None] * (2.0 ** np.arange(2))[None, :]
+    t = PQ.quantize("q6_k", torch.tensor(w, dtype=torch.float32))
+    assert t.data["scales"].dtype == torch.int8
+    np.testing.assert_array_equal(
+        t.data["scales"].numpy(),
+        np.repeat(sc_q.astype(np.int8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(t.data["d"].float().numpy(), [[d, 2 * d]])
+    stored = np.repeat(np.tile(qpat + 32, 16).astype(np.uint8)[:, None], 2,
+                       axis=1)
+    np.testing.assert_array_equal(
+        t.data["ql"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(stored & 15), 4, 256)))
+    np.testing.assert_array_equal(
+        t.data["qh"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(stored >> 4), 2, 256)))
+    np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)
+
+
 def test_quantize_params_tree_matches_reference():
     """Reduced tinyllama under paper_llama_mix: the same report, and every
     stacked QTensor byte-identical with its leading layer axis."""
@@ -173,6 +247,12 @@ def test_format_registry_and_policy_mirror():
 def test_unported_variant_raises():
     w = torch.zeros(256, 32)
     with pytest.raises(NotImplementedError):
-        PQ.quantize("q4_k", w)
+        PQ.quantize("q4_0", w)
     with pytest.raises(KeyError):
         PQ.quantize("q9_z", w)
+
+
+@pytest.mark.parametrize("variant", ["q3_k_o", "q8_0"])
+def test_other_unported_variants_raise(variant):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        PQ.quantize(variant, torch.zeros(256, 32))

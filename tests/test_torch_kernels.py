@@ -55,7 +55,7 @@ def _rel_err(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-@pytest.mark.parametrize("variant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("variant", PB.VARIANTS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_interpret_and_ref(variant, dtype):
     for i, (M, K, N) in enumerate(SHAPES):
@@ -77,7 +77,7 @@ def test_plain_matches_pallas_interpret_and_ref(variant, dtype):
                         ref) <= 1e-6
 
 
-@pytest.mark.parametrize("variant", ["q2_k", "q3_k"])
+@pytest.mark.parametrize("variant", PB.VARIANTS)
 def test_rows_independent_of_m(variant):
     """Row m of a product does not depend on how many rows share the call:
     batched admission equals sequential admission only because of this."""
@@ -112,4 +112,4 @@ def test_cuda_impl_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         PO.bfp_matmul(x, pt, impl="cuda")
     PO.bfp_matmul(x, pt)
-    assert PB.launches == {"q2_k": 0, "q3_k": 0}
+    assert PB.launches == {v: 0 for v in PB.VARIANTS}

@@ -31,6 +31,7 @@ from repro.models import transformer as JT
 from repro_torch import bridge
 from repro_torch.configs.base import get_arch as p_get_arch
 from repro_torch.core.quantize import QTensor
+from repro_torch.models import layers as PLY
 from repro_torch.models import transformer as PT
 
 torch.set_num_threads(2)
@@ -163,3 +164,33 @@ def test_entry_points_default_to_cuda():
                             device="cpu")
     assert params["layers"]["attn"]["wq"].shape == (2, 256, 256)
     assert params["lm_head"].shape == (256, 512)
+
+
+@pytest.mark.parametrize("attn_impl,expect", [("fused", "fused"),
+                                              ("auto", "naive"),
+                                              ("naive", "naive")])
+def test_prefill_chunk_takes_the_configured_attention(monkeypatch, attn_impl,
+                                                      expect):
+    """cfg.attn_impl == "fused" sends every layer's prefill attention to
+    the fused route, as the reference's prefill_chunk does
+    (src/repro/models/transformer.py:737); any other value keeps the
+    naive route. The fused route reaches the fused attention's dispatch
+    once a layer."""
+    cfg = p_get_arch("tinyllama-1.1b", reduced=True).replace(
+        dtype="float32", attn_impl=attn_impl)
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    seen, fused_calls = [], []
+    route = PLY.prefill_attention
+    fused = getattr(PLY, "prefill_attn_fused", None)
+    monkeypatch.setattr(PLY, "prefill_attention", lambda *a, **kw: (
+        seen.append(kw.get("impl", "naive")), route(*a, **kw))[1])
+    monkeypatch.setattr(PLY, "prefill_attn_fused", lambda *a, **kw: (
+        fused_calls.append(1), fused(*a, **kw))[1], raising=False)
+    cache = PT.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    h, _ = PT.prefill_chunk(params, cfg, cache,
+                            tokens=torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]]),
+                            start=0, lengths=torch.tensor([4, 3]))
+    assert seen == [expect] * cfg.n_layers
+    assert len(fused_calls) == (cfg.n_layers if expect == "fused" else 0)
+    assert bool(torch.isfinite(h).all())
