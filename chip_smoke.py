@@ -21,8 +21,13 @@ Phases, each of which exits nonzero on failure:
    attention at the serving shape (B=4, C=128, H=32, KH=4, D=64,
    T=1024+128) with empty (-1) ring slots, at D=128, with a sliding window
    and with a softcap, f32 and bf16, on visible rows; batch row 0 of a B=4
-   call equals the B=1 call bit for bit. The reduced model's logits on the
-   card against the CPU's plain path, on both serving paths.
+   call equals the B=1 call bit for bit. Q3_K_O/Q4_0/Q5_K/Q8_0 at all
+   five shapes at decode M and the search's M (128), Q4_0/Q8_0 also at
+   (2080, 256) (K a multiple of 32, not of 256), and every variant's
+   packing on the card against the CPU's, byte for byte (Q3_K_O on
+   tie-free scores). The reduced model's
+   logits on the card against the CPU's plain path, on both serving paths
+   and under the hand-written slice-3 policy.
 3. serve, slice 1: full-width tinyllama-1.1b from random weights (seeded),
    packed with paper_llama_mix on the card, serves the paper's Table IV
    scenario (8 requests, 6-token prompts, 10 new tokens, 4 slots) through
@@ -45,6 +50,25 @@ Phases, each of which exits nonzero on failure:
    attention kernel's time for the 22 launches of one prefill-chunk
    forward beside its bound, the plain version's time and
    ``scaled_dot_product_attention`` with the equivalent boolean mask.
+7. search, slice 3: ``serve --policy auto`` with no policy file (the
+   launcher's ``resolve_policy`` on a fresh temporary path): calibration
+   (2 batches of 2 x 64 tokens), the policy search over
+   ``DEFAULT_CANDIDATES`` with 2 refinement rounds (every evaluation one
+   full-width forward at M = 2 x 64 = 128), the file written; q3_k_o
+   kernels must have launched, and the final policy must weakly dominate
+   the seed on KL and bytes. The searched policy, packed with the
+   search's stats, serves path 1's traffic; every forward must launch
+   the kernels its packing implies, and greedy tokens must equal
+   generate_reference. One evaluation forward's wall time is set beside
+   the device time of its matmul kernels.
+8. load, slice 3: a hand-written policy file (q4_0 on wq, q5_k on wo,
+   q3_k_o on w_gate, q8_0 on w_down, q3_k elsewhere) through
+   ``--policy auto --policy-json``: the launcher recalibrates (a q3_k_o
+   rule), packs and serves path 1's traffic; every forward must launch 22
+   q4_0 + 22 q5_k + 22 q3_k_o + 22 q8_0 + 67 q3_k kernels, and greedy
+   tokens must equal generate_reference.
+9. timing, slice 3: Q3_K_O/Q4_0/Q5_K/Q8_0 as in phase 4 on the hand-written
+   layout, at decode M and at the search's M (128).
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +79,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -87,11 +112,28 @@ M_PREFILL2 = SERVE2["prefill_batch"] * SERVE2["prefill_chunk"]
 # (B, C, H, KH, D, ring T): the serving shape of one prefill chunk
 ATTN_SERVE = (SERVE2["prefill_batch"], SERVE2["prefill_chunk"], 32, 4, 64,
               SERVE2["cache_len"])
-# each variant at the M of every path that runs it: q3_k is on both
-MATMUL_CASES = (("q2_k", SHAPES, (M_DECODE, M_PREFILL)),
-                ("q3_k", SHAPES, (M_DECODE, M_PREFILL, M_PREFILL2)),
-                ("q4_k", SHAPES2, (M_DECODE, M_PREFILL2)),
-                ("q6_k", SHAPES2, (M_DECODE, M_PREFILL2)))
+# slice 3: --policy auto; a search evaluation is one forward of the eval
+# batch (2 sequences of 64 tokens)
+M_SEARCH = 2 * 64
+SEARCH_ROUNDS = 2
+HAND_MIX = {"name": "hand_mix",
+            "rules": [["*attn/wq", "q4_0"], ["*attn/wo", "q5_k"],
+                      ["*mlp/w_gate", "q3_k_o"], ["*mlp/w_down", "q8_0"]],
+            "default": "q3_k"}
+HAND_PER_FORWARD = {"q4_0": 22, "q5_k": 22, "q3_k_o": 22, "q8_0": 22,
+                    "q3_k": 67}
+SLICE3_VARIANTS = ("q3_k_o", "q4_0", "q5_k", "q8_0")
+RAGGED_K = ((2080, 256),)       # K % 32 == 0, K % 256 != 0
+# each variant at the M of every path that runs it: q3_k is on all three
+MATMUL_CASES = (("q2_k", SHAPES, (M_DECODE, M_PREFILL, M_SEARCH)),
+                ("q3_k", SHAPES, (M_DECODE, M_PREFILL, M_PREFILL2,
+                                  M_SEARCH)),
+                ("q4_k", SHAPES, (M_DECODE, M_PREFILL2, M_SEARCH)),
+                ("q6_k", SHAPES, (M_DECODE, M_PREFILL2, M_SEARCH)),
+                ("q3_k_o", SHAPES, (M_DECODE, M_SEARCH)),
+                ("q4_0", SHAPES + RAGGED_K, (M_DECODE, M_SEARCH)),
+                ("q5_k", SHAPES, (M_DECODE, M_SEARCH)),
+                ("q8_0", SHAPES + RAGGED_K, (M_DECODE, M_SEARCH)))
 
 
 def fail(msg: str) -> None:
@@ -154,7 +196,71 @@ def phase_kernels(torch, Q, PB, dev):
               f"{row_ok}", flush=True)
         check(row_ok, f"{variant}: a row depends on M")
         max_abs[variant] = worst
+    phase_packing(torch, Q, PB, dev, g)
     return max_abs
+
+
+def tie_free_weights(torch, L, K, N, dev, g):
+    """(L, K, N) weights whose |w| are distinct within every column: each
+    column holds 1 + p / K for a random permutation p of 0..K-1 (exact in
+    f32), with random signs. Activation stats of powers of two keep the
+    scores |w| * a distinct too, so top-k has a single answer."""
+    perm = torch.argsort(torch.rand(L, N, K, generator=g, device=dev), -1)
+    sign = torch.randint(0, 2, (L, K, N), generator=g, device=dev) * 2 - 1
+    act = 2.0 ** torch.randint(0, 3, (K,), generator=g, device=dev)
+    return (1 + perm.transpose(1, 2).float() / K) * sign, act.float()
+
+
+def _same_payloads(torch, a, b) -> bool:
+    return all(torch.equal(v.cpu().view(torch.uint8),
+                           b.data[k].cpu().view(torch.uint8))
+               for k, v in a.data.items())
+
+
+def phase_packing(torch, Q, PB, dev, g):
+    """Packing on the card against the CPU's, at w_gate's shape: every
+    variant on random normal weights, byte for byte (the reference's
+    packing is the CPU's, test_torch_formats). q3_k_o, two stacked layers:
+    on tie-free scores byte for byte; on random normal weights exact score
+    ties occur at this size and torch.topk orders the tied rows
+    differently on the two devices, so there both selections must be
+    top-8 sets of the same scores, and the count of (super-block, column)
+    pairs whose sidecar differs is printed."""
+    L, K, N = 2, 2048, 5632
+    for variant in PB.VARIANTS:
+        if variant == "q3_k_o":
+            continue
+        w = torch.randn(K, N, generator=g, device=dev)
+        same = _same_payloads(torch, Q.quantize(variant, w),
+                              Q.quantize(variant, w.cpu()))
+        print(f"[kernels] {variant} packing {(K, N)}: card == CPU byte for "
+              f"byte: {same}", flush=True)
+        check(same, f"{variant} packing on the card differs from the CPU's")
+    w, act = tie_free_weights(torch, L, K, N, dev, g)
+    for a in (None, act):
+        same = _same_payloads(
+            torch, Q.quantize_q3_k_o(w, act_absmax=a),
+            Q.quantize_q3_k_o(w.cpu(), act_absmax=None if a is None
+                              else a.cpu()))
+        print(f"[kernels] q3_k_o packing {(L, K, N)}, tie-free scores, act "
+              f"stats {a is not None}: card == CPU byte for byte: {same}",
+              flush=True)
+        check(same, "q3_k_o packing on the card differs from the CPU's")
+    w = torch.randn(L, K, N, generator=g, device=dev)
+    gpu, cpu = Q.quantize_q3_k_o(w), Q.quantize_q3_k_o(w.cpu())
+    score = w.cpu().abs().reshape(L, K // 256, 256, N)
+    picked = {}
+    for name, t in (("gpu", gpu), ("cpu", cpu)):
+        idx = t.data["oidx"].cpu().long().reshape(L, K // 256, 8, N)
+        picked[name] = torch.gather(score, 2, idx).sort(dim=2).values
+    differ = (gpu.data["oidx"].cpu() != cpu.data["oidx"]).reshape(
+        L, K // 256, 8, N).any(2)
+    ok = torch.equal(picked["gpu"], picked["cpu"])
+    print(f"[kernels] q3_k_o packing {(L, K, N)}, random normal weights: "
+          f"same top-8 scores everywhere: {ok}; sidecar order differs in "
+          f"{int(differ.sum())} of {differ.numel()} (super-block, column) "
+          f"pairs (exact score ties)", flush=True)
+    check(ok, "q3_k_o on the card picks other scores than on the CPU")
 
 
 def attn_inputs(torch, dev, B, C, H, KH, D, T_ring, start, dtype, g,
@@ -226,15 +332,15 @@ def phase_attention(torch, PA, dev):
     return worst
 
 
-def phase_small_model(torch, get_arch, get_policy, quantize_params,
-                      to_device, T, dev, policy, attn_impl):
+def phase_small_model(torch, get_arch, quantize_params, to_device, T, dev,
+                      policy, attn_impl):
     """Reduced tinyllama in f32: prefill + two decode steps through the
     kernels on the card against the plain path on the CPU."""
     cfg = get_arch("tinyllama-1.1b", reduced=True).replace(
         dtype="float32", attn_impl=attn_impl)
     params = T.init_params(cfg, torch.Generator().manual_seed(2),
                            device="cpu")
-    qp, _ = quantize_params(params, get_policy(policy))
+    qp, _ = quantize_params(params, policy)
     qg = to_device(qp, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 8),
                          generator=torch.Generator().manual_seed(3))
@@ -256,7 +362,7 @@ def phase_small_model(torch, get_arch, get_policy, quantize_params,
             nxt = nxt + 1
         outs[name] = [lg.cpu() for lg in logits]
     errs = [rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
-    print(f"[kernels] reduced model ({policy}, attn_impl={attn_impl}) "
+    print(f"[kernels] reduced model ({policy.name}, attn_impl={attn_impl}) "
           f"logits, card vs CPU plain path: rel {max(errs):.2e} (tol "
           f"{TOL_MODEL:.2e})", flush=True)
     check(max(errs) <= TOL_MODEL, "reduced model disagrees with the CPU")
@@ -351,27 +457,31 @@ def _device_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill):
-    """Per variant, one forward's launches at decode and prefill M."""
+def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
+                 big="prefill", head_m=M_DECODE):
+    """Per variant, one forward's launches at decode M and at ``m_prefill``
+    (the phase named ``big``: a prefill chunk, where the LM head runs on
+    ``head_m`` gathered rows, or a search evaluation, where it runs on
+    every row)."""
     layers = qp["layers"]
     mats = {v: [] for v in variants}
     for blk, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                       ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
                       ("mlp", "w_down")):
         t = layers[blk][name]
-        if t.variant in mats:
+        if getattr(t, "variant", None) in mats:
             mats[t.variant] += [(t.layer(i), False)
                                 for i in range(cfg.n_layers)]
-    if qp["lm_head"].variant in mats:
+    if getattr(qp["lm_head"], "variant", None) in mats:
         mats[qp["lm_head"].variant].append((qp["lm_head"], True))
     g = torch.Generator(device=dev).manual_seed(4)
     out = {}
     for variant, ws in mats.items():
         dense = [Q.dequantize(t, torch.bfloat16) for t, _ in ws]
         res = {}
-        for phase, M in (("decode", M_DECODE), ("prefill", m_prefill)):
-            # the LM head runs on one gathered row per sequence
-            ms_ = [M_DECODE if head else M for _, head in ws]
+        for phase, M, mh in (("decode", M_DECODE, M_DECODE),
+                             (big, m_prefill, head_m)):
+            ms_ = [mh if head else M for _, head in ws]
             xs = {(m, t.shape[0]): torch.randn(
                 m, t.shape[0], generator=g, device=dev).bfloat16()
                 for m, (t, _) in zip(ms_, ws)}
@@ -470,6 +580,96 @@ def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
     return qp
 
 
+def phase_search(torch, cfg, params, resolve_policy, quantize_params,
+                 variant_counts, PB, dev, path):
+    """``serve --policy auto`` with no file at ``path``: calibrate, search,
+    write, pack with the search's stats. The launch counts are zeroed just
+    before and read just after."""
+    PB.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy, calib, info = resolve_policy(
+        cfg, params, policy="auto", arch=cfg.name, policy_json=str(path),
+        search_rounds=SEARCH_ROUNDS, device=dev)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = dict(PB.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    meta = info["meta"]
+    check(path.exists(), "the search wrote no policy file")
+    print(f"[search] calibration ({meta['calib_tokens']} rows) and search "
+          f"in {t_search:.1f}s: {info['evaluations']} evaluations at "
+          f"M={M_SEARCH}; seed kl {meta['seed']['kl']:.6f} bytes "
+          f"{meta['seed']['bytes']} -> final kl {meta['final']['kl']:.6f} "
+          f"bytes {meta['final']['bytes']} (top1 {meta['final']['top1']:.3f}"
+          f", pseudo-ppl {meta['final']['pseudo_ppl']:.3f})", flush=True)
+    print(f"[search] assignment: {info['assignment']}", flush=True)
+    print(f"[search] kernel launches during the search: {launches}; peak "
+          f"device memory {peak_gb:.2f} GB", flush=True)
+    check(launches["q3_k_o"] > 0, "the search launched no q3_k_o kernel")
+    check(meta["final"]["kl"] <= meta["seed"]["kl"] * (1 + 1e-6)
+          and meta["final"]["bytes"] <= meta["seed"]["bytes"],
+          "the searched policy does not weakly dominate the seed")
+    t0 = time.perf_counter()
+    qp, report = quantize_params(params, policy, calib=calib)
+    torch.cuda.synchronize()
+    counts = variant_counts(report, qp)
+    print(f"[search] searched policy packed in "
+          f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
+    return qp, counts, launches, dict(t_search=t_search, peak_gb=peak_gb,
+                                      evaluations=info["evaluations"],
+                                      seed=meta["seed"], final=meta["final"],
+                                      assignment=info["assignment"])
+
+
+def phase_search_eval(torch, cfg, qp, counts, PB, Q, T, dev):
+    """Where one search evaluation's time goes: the wall time of one
+    forward of the eval batch (2 x 64 tokens) on the searched packing,
+    against the device time of its matmul kernels (every launch at
+    M = 128, the LM head included)."""
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    T.forward_seq(qp, cfg, tokens=toks)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.forward_seq(qp, cfg, tokens=toks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    timing = phase_timing(torch, qp, cfg, PB, Q, dev, "timing3s",
+                          tuple(counts), M_SEARCH, big="search",
+                          head_m=M_SEARCH)
+    kern = sum(t["search"]["ms"] for t in timing.values())
+    print(f"[search] one evaluation forward (2 x 64 tokens, searched "
+          f"layout): {wall:.3f} ms wall (median of 5), of which the matmul "
+          f"kernels {kern:.3f} ms of device time ({kern / wall:.0%})",
+          flush=True)
+    return dict(wall_ms=wall, matmul_ms=kern)
+
+
+def phase_load(torch, cfg, params, resolve_policy, quantize_params,
+               variant_counts, dev, path):
+    """``serve --policy auto --policy-json`` on the hand-written file."""
+    path.write_text(json.dumps(HAND_MIX))
+    t0 = time.perf_counter()
+    policy, calib, info = resolve_policy(
+        cfg, params, policy="auto", arch=cfg.name, policy_json=str(path),
+        device=dev)
+    qp, report = quantize_params(params, policy, calib=calib)
+    torch.cuda.synchronize()
+    counts = variant_counts(report, qp)
+    print(f"[load] {path.name} loaded, recalibrated and packed in "
+          f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
+    check(info is None, "an existing policy file must be loaded, not "
+          "searched")
+    check(counts == HAND_PER_FORWARD,
+          f"hand-written layout: {counts}, expected {HAND_PER_FORWARD}")
+    return qp
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -482,12 +682,13 @@ def main() -> None:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.configs.base import get_arch
     from repro_torch.core import quantize as Q
-    from repro_torch.core.policy import get_policy
+    from repro_torch.core.policy import get_policy, policy_from_dict
     from repro_torch.core.qlinear import (quantize_params, to_device,
                                           variant_counts)
     from repro_torch.kernels import _build
     from repro_torch.kernels import bfp_matmul as PB
     from repro_torch.kernels import prefill_attn as PA
+    from repro_torch.launch.serve import resolve_policy
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -498,10 +699,11 @@ def main() -> None:
     phase_build(_build)
     max_abs = phase_kernels(torch, Q, PB, dev)
     max_abs["prefill_attn"] = phase_attention(torch, PA, dev)
-    for policy, attn_impl in (("paper_llama_mix", "auto"),
-                              ("extended_mix", "fused")):
-        phase_small_model(torch, get_arch, get_policy, quantize_params,
-                          to_device, T, dev, policy, attn_impl)
+    for policy, attn_impl in ((get_policy("paper_llama_mix"), "auto"),
+                              (get_policy("extended_mix"), "fused"),
+                              (policy_from_dict(HAND_MIX), "auto")):
+        phase_small_model(torch, get_arch, quantize_params, to_device, T,
+                          dev, policy, attn_impl)
 
     # slice 1: paper_llama_mix, naive prefill attention
     cfg = get_arch("tinyllama-1.1b")
@@ -535,6 +737,35 @@ def main() -> None:
     timing2 = phase_timing(torch, qp, cfg2, PB, Q, dev, "timing2",
                            ("q3_k", "q4_k", "q6_k"), M_PREFILL2)
     attn_timing = phase_attn_timing(torch, PA, cfg.n_layers, dev)
+    del qp
+    torch.cuda.empty_cache()
+
+    # slice 3: --policy auto, search branch then load branch, path 1's
+    # traffic; the float weights stay for both (calibration runs on them)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        qp, counts, launches_search, search = phase_search(
+            torch, cfg, params, resolve_policy, quantize_params,
+            variant_counts, PB, dev, Path(tmp) / "auto_search.json")
+        search["eval_forward"] = phase_search_eval(torch, cfg, qp, counts,
+                                                   PB, Q, T, dev)
+        launches3s, _, _ = phase_serve(
+            torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev, "serve3s",
+            SERVE, prompts, counts, 0)
+        del qp
+        torch.cuda.empty_cache()
+        qp = phase_load(torch, cfg, params, resolve_policy, quantize_params,
+                        variant_counts, dev, Path(tmp) / "hand_mix.json")
+    del params
+    torch.cuda.empty_cache()
+    launches3l, _, _ = phase_serve(
+        torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev, "serve3l",
+        SERVE, prompts, HAND_PER_FORWARD, 0)
+    timing3 = phase_timing(torch, qp, cfg, PB, Q, dev, "timing3",
+                           SLICE3_VARIANTS, M_SEARCH, big="search")
+    del qp
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -542,21 +773,25 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     kernels = []
     for v in PB.VARIANTS:
-        t = timing[v] if v in timing else timing2[v]
+        by_path = {"paper_llama_mix": launches1[v],
+                   "extended_mix_fused": launches2[v],
+                   "policy_auto_search": launches_search[v],
+                   "policy_auto_searched_serve": launches3s[v],
+                   "policy_auto_hand_mix_serve": launches3l[v]}
+        t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
             "name": f"bfp_matmul_{v}", "route": "cuda",
             "source": "src/repro_torch/csrc/bfp_matmul.cu",
             "replaces": "src/repro/kernels/bfp_matmul.py:89",
-            "launches": launches1[v] + launches2[v],
-            "launches_by_path": {"paper_llama_mix": launches1[v],
-                                 "extended_mix_fused": launches2[v]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_abs[v],
             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
             "library_ms": dec["library_ms"],
             "per": "the launches of one decode forward (M=max_slots)",
-            "prefill": t["prefill"]})
+            **{k: t[k] for k in ("prefill", "search") if k in t}})
         if v in timing and v in timing2:    # on both paths' layouts
             kernels[-1]["extended_mix"] = timing2[v]
     kernels.append({
@@ -573,6 +808,7 @@ def main() -> None:
         "library_ms": attn_timing["library_ms"],
         "per": "the launches of one prefill-chunk forward (22 layers)",
         "bytes": attn_timing["bytes"], "flops": attn_timing["flops"]})
+    print(f"[search] summary: {json.dumps(search)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

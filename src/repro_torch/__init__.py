@@ -3,7 +3,7 @@
 Mirrors ``repro``'s module layout (configs, core, kernels, models,
 serving, launch) so each module has a counterpart there. The port imports
 ``torch`` and ``numpy`` only; the JAX package is its numerical reference
-in the tests. Every Q2_K/Q3_K matmul runs through a hand-written CUDA
-kernel (``csrc/bfp_matmul.cu``) on the GPU, and through its plain PyTorch
-version on CPU tensors.
+in the tests. Every packed matmul, in any of the eight weight formats,
+runs through a hand-written CUDA kernel (``csrc/bfp_matmul.cu``) on the
+GPU, and through its plain PyTorch version on CPU tensors.
 """

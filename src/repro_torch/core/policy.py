@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import json
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.core import formats as F
@@ -107,3 +108,41 @@ def get_policy(name: str) -> QuantPolicy:
     except KeyError:
         raise KeyError(f"unknown policy {name!r}; known: "
                        f"{sorted(POLICIES)}") from None
+
+
+# --------------------------------------------------------------------------
+# policy files (``launch/policy_search.py`` writes them; ``serve --policy
+# auto`` loads them back). The schema is the reference's, so a file
+# written by either package loads in the other to the same rules.
+# --------------------------------------------------------------------------
+
+def policy_to_dict(policy: QuantPolicy) -> dict:
+    """JSON-ready form: {"name", "rules": [[pattern, variant], ...],
+    "default"}. Searched policies use exact paths as patterns (fnmatch
+    treats a glob with no metacharacters as an exact match), so the same
+    schema covers hand-written and searched policies."""
+    return {"name": policy.name,
+            "rules": [list(r) for r in policy.rules],
+            "default": policy.default}
+
+
+def policy_from_dict(d: dict) -> QuantPolicy:
+    rules = tuple((str(p), str(v)) for p, v in d.get("rules", ()))
+    for _, v in rules:
+        if v != "none" and v not in F.FORMATS:
+            raise ValueError(f"unknown variant {v!r} in policy rules")
+    default = str(d.get("default", "q3_k"))
+    if default != "none" and default not in F.FORMATS:
+        raise ValueError(f"unknown default variant {default!r}")
+    return QuantPolicy(str(d.get("name", "searched")), rules, default)
+
+
+def save_policy(policy: QuantPolicy, path) -> None:
+    with open(path, "w") as f:
+        json.dump(policy_to_dict(policy), f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+def load_policy(path) -> QuantPolicy:
+    with open(path) as f:
+        return policy_from_dict(json.load(f))

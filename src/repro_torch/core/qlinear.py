@@ -19,6 +19,8 @@ from repro_torch.core.policy import QuantPolicy
 # parameter-path fragments that are never quantized at serve time
 _NEVER = ("ln", "norm", "wpe", "b_", "bias", "router", "conv", "A_log", "D",
           "dt_bias", "pos", "wte")
+# the reference's expert-stack path fragment (packed along E*K there)
+_EXPERT_STACK = "moe/w_"
 
 
 def _is_quantizable_path(path: str) -> bool:
@@ -42,10 +44,17 @@ def _flatten_paths(tree, prefix="") -> List[Tuple[str, Any]]:
     return out
 
 
-def quantize_params(params: Dict[str, Any], policy: QuantPolicy
+def quantize_params(params: Dict[str, Any], policy: QuantPolicy,
+                    calib: Optional[Dict[str, Any]] = None
                     ) -> Tuple[Dict[str, Any], Dict[str, Optional[str]]]:
     """Returns (qparams, report). report: path -> variant|None. Packing
-    runs on the device the weights lie on."""
+    runs on the device the weights lie on.
+
+    ``calib`` optionally maps parameter path -> per-K-column activation
+    abs-max (``core.calibrate``); a path packed as q3_k_o picks its
+    sidecar rows with it, tiled to K and shared by the stacked layers, as
+    the reference does. MoE expert stacks (packed along E*K there) are not
+    ported: a stacked weight under ``moe/w_`` raises."""
     report: Dict[str, Optional[str]] = {}
 
     def walk(node, prefix=""):
@@ -60,6 +69,15 @@ def quantize_params(params: Dict[str, Any], policy: QuantPolicy
         report[path] = variant
         if variant is None:
             return node
+        if _EXPERT_STACK in path and node.dim() >= 3:
+            raise NotImplementedError(
+                f"{path}: MoE expert stacks are not ported yet")
+        stats = calib.get(path) if calib is not None else None
+        if variant == "q3_k_o" and stats is not None:
+            a = torch.as_tensor(stats, dtype=torch.float32).reshape(-1)
+            if K % a.numel() == 0:
+                a = a.repeat(K // a.numel()).to(node.device)
+                return Q.quantize_q3_k_o(node, act_absmax=a)
         return Q.quantize_fn(variant)(node)
 
     return walk(params), report

@@ -1,16 +1,19 @@
 """Quantize / dequantize for the GGUF k-quant family, in PyTorch.
 
 Counterpart of ``repro.core.quantize``. Payloads are bit-exact against
-the reference: the arithmetic runs in float32 in the reference's order
-(``/ qmax``, ``/ 15.0``, ``/ 31.0``, ``/ 63.0``, ``/ 127.0``, multiply
-by ``_safe_inv``, cast to float16 last), and ``torch.round`` rounds half
-to even as ``jnp.round`` does. Every function takes ``(..., K, N)``
+the reference on the CPU and on the card: the arithmetic runs in float32
+in the reference's order (``/ qmax``, ``/ 15.0``, ``/ 31.0``, ``/ 63.0``,
+``/ 127.0`` as true divisions, multiply by ``_safe_inv``, cast to
+float16 last), and ``torch.round`` rounds half to even as ``jnp.round``
+does. Every function takes ``(..., K, N)``
 weights: leading axes (a stacked layer axis) pass through, which is what
 the reference's ``vmap`` over stacked layers gives.
 
-The port has the paper's two native variants, Q2_K and Q3_K, and the
-extended k-quants Q4_K, Q5_K and Q6_K. The other registered formats
-(Q3_K_O, Q4_0, Q8_0) raise ``NotImplementedError`` until their slice.
+The port has all eight weight variants: the paper's Q2_K and Q3_K, the
+extended k-quants Q4_K, Q5_K and Q6_K, the outlier-sidecar Q3_K_O and
+the 32-row block formats Q4_0 and Q8_0 (Q8_0 is also the fallback for a K
+that is a multiple of 32 and not of 256). The Q8_K activation format is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -61,16 +64,25 @@ def _nearest(x):
     return torch.round(x)
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, correctly rounded on every device. PyTorch's CUDA division by
+    a Python (CPU) scalar multiplies by the scalar's reciprocal, which is
+    off by one ulp for some x (c = 31.0, say), and the reference divides;
+    a divisor tensor on x's device takes the true division."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def _safe_inv(x):
     pos = x > 0
     return torch.where(pos, 1.0 / torch.where(pos, x, torch.ones_like(x)),
                        torch.zeros_like(x))
 
 
-def _check_k(w: torch.Tensor) -> Tuple[int, int]:
+def _check_k(w: torch.Tensor, rows: int = 256) -> Tuple[int, int]:
     K, N = w.shape[-2], w.shape[-1]
-    if K % 256:
-        raise ValueError(f"K={K} is not a multiple of the 256-row super-block")
+    if K % rows:
+        raise ValueError(f"K={K} is not a multiple of the {rows}-row "
+                         "super-block")
     return K, N
 
 
@@ -87,9 +99,9 @@ def quantize_q2_k(w: torch.Tensor) -> QTensor:
     bmin = x.amin(dim=-2)
     zero = torch.zeros((), dtype=torch.float32, device=w.device)
     min_f = torch.maximum(zero, -bmin)                       # (sb, 16, N) >= 0
-    scale_f = torch.maximum(bmax + min_f, zero) / 3.0
-    d = scale_f.amax(dim=-2) / 15.0                          # (sb, N)
-    dmin = min_f.amax(dim=-2) / 15.0
+    scale_f = _div(torch.maximum(bmax + min_f, zero), 3.0)
+    d = _div(scale_f.amax(dim=-2), 15.0)                   # (sb, N)
+    dmin = _div(min_f.amax(dim=-2), 15.0)
     sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 15)
     m_q = torch.clamp(_nearest(min_f * _safe_inv(dmin).unsqueeze(-2)), 0, 15)
     eff_sc = d.unsqueeze(-2) * sc_q                          # (sb, 16, N)
@@ -128,8 +140,8 @@ def quantize_q3_k(w: torch.Tensor) -> QTensor:
     nsb = K // 256
     x = w.to(torch.float32).reshape(*lead, nsb, 16, 16, N)
     amax = x.abs().amax(dim=-2)                              # (sb, 16, N)
-    scale_f = amax / 4.0
-    d = scale_f.amax(dim=-2) / 31.0                          # (sb, N)
+    scale_f = _div(amax, 4.0)
+    d = _div(scale_f.amax(dim=-2), 31.0)                   # (sb, N)
     sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 31)
     eff = d.unsqueeze(-2) * sc_q
     q = torch.clamp(_nearest(x * _safe_inv(eff).unsqueeze(-2)), -4, 3) + 4
@@ -168,9 +180,9 @@ def _quantize_q45(w: torch.Tensor, variant: str, qmax: int) -> QTensor:
     bmin = x.amin(dim=-2)
     zero = torch.zeros((), dtype=torch.float32, device=w.device)
     min_f = torch.maximum(zero, -bmin)                       # (sb, 8, N) >= 0
-    scale_f = torch.maximum(bmax + min_f, zero) / qmax
-    d = scale_f.amax(dim=-2) / 63.0                          # (sb, N)
-    dmin = min_f.amax(dim=-2) / 63.0
+    scale_f = _div(torch.maximum(bmax + min_f, zero), qmax)
+    d = _div(scale_f.amax(dim=-2), 63.0)                   # (sb, N)
+    dmin = _div(min_f.amax(dim=-2), 63.0)
     sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)), 0, 63)
     m_q = torch.clamp(_nearest(min_f * _safe_inv(dmin).unsqueeze(-2)), 0, 63)
     eff_sc = d.unsqueeze(-2) * sc_q                          # (sb, 8, N)
@@ -223,8 +235,8 @@ def quantize_q6_k(w: torch.Tensor) -> QTensor:
     nsb = K // 256
     x = w.to(torch.float32).reshape(*lead, nsb, 16, 16, N)
     amax = x.abs().amax(dim=-2)                              # (sb, 16, N)
-    scale_f = amax / 32.0
-    d = scale_f.amax(dim=-2) / 127.0                         # (sb, N)
+    scale_f = _div(amax, 32.0)
+    d = _div(scale_f.amax(dim=-2), 127.0)                  # (sb, N)
     sc_q = torch.clamp(_nearest(scale_f * _safe_inv(d).unsqueeze(-2)),
                        -128, 127)
     eff = d.unsqueeze(-2) * sc_q
@@ -251,28 +263,139 @@ def dequantize_q6_k(t: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Q3_K_O: the q3_k base plus an fp16 outlier sidecar. Per 256-row
+# super-block and column, the OUTLIERS_PER_SB rows of largest score
+# (|w|, times the calibration's per-K activation abs-max when given) are
+# kept exactly in fp16 (local row index + value) and zeroed before the
+# q3_k fit.
+# ---------------------------------------------------------------------------
+
+OUTLIERS_PER_SB = 8
+
+
+def quantize_q3_k_o(w: torch.Tensor, act_absmax=None) -> QTensor:
+    """``act_absmax``: optional (K,) activation abs-max, shared by every
+    layer of a stacked weight (the reference tiles one vector per path).
+
+    The rows are chosen with ``torch.topk``. Among exactly equal scores
+    its order differs from ``jax.lax.top_k``'s, and between the CPU and
+    CUDA: the bytes then differ, and the selected set too if the tie
+    straddles the 8th place. Random normal f32 weights do tie at full
+    width (2 of 90,112 (super-block, column) pairs at tinyllama's w_gate
+    shape), so byte-for-byte checks use tie-free scores."""
+    K, N = _check_k(w)
+    lead = w.shape[:-2]
+    nsb = K // 256
+    no = OUTLIERS_PER_SB
+    x = w.to(torch.float32).reshape(*lead, nsb, 256, N)
+    score = x.abs()
+    if act_absmax is not None:
+        a = torch.as_tensor(act_absmax, dtype=torch.float32,
+                            device=w.device).reshape(nsb, 256)
+        score = score * a[:, :, None]
+    # top-`no` rows per (super-block, column), in descending score
+    _, idx = torch.topk(score.transpose(-1, -2), no, dim=-1)  # (sb, N, no)
+    idx = idx.transpose(-1, -2).contiguous()                  # (sb, no, N)
+    ovals = torch.gather(x, -2, idx)
+    mask = torch.zeros_like(x, dtype=torch.bool).scatter_(-2, idx, True)
+    base = torch.where(mask, torch.zeros_like(x), x).reshape(*lead, K, N)
+    qt = quantize_q3_k(base)
+    return QTensor("q3_k_o", (K, N), dict(
+        qt.data,
+        oidx=idx.to(torch.uint8).reshape(*lead, K // 32, N),
+        ovals=ovals.to(torch.float16).reshape(*lead, K // 32, N)))
+
+
+def dequantize_q3_k_o(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    nsb = K // 256
+    no = OUTLIERS_PER_SB
+    lead = t.data["d"].shape[:-2]
+    base = dequantize_q3_k(
+        QTensor("q3_k", (K, N),
+                {k: t.data[k] for k in ("qs", "hmask", "scales", "d")}))
+    idx = t.data["oidx"].to(torch.long).reshape(*lead, nsb, no, N)
+    vals = t.data["ovals"].to(torch.float32).reshape(*lead, nsb, no, N)
+    w = base.reshape(*lead, nsb, 256, N)
+    rows = torch.arange(256, device=w.device)[:, None]
+    # compare-select in the reference's order (the indices are distinct)
+    for j in range(no):
+        sel = rows == idx[..., j:j + 1, :]
+        w = torch.where(sel, vals[..., j:j + 1, :], w)
+    return w.reshape(*lead, K, N).to(dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Q4_0 (32-row blocks, symmetric 4-bit, fp16 scale; llama.cpp's sign
+# convention d = signed abs-max / -8)
+# ---------------------------------------------------------------------------
+
+def quantize_q4_0(w: torch.Tensor) -> QTensor:
+    K, N = _check_k(w, 32)
+    lead = w.shape[:-2]
+    x = w.to(torch.float32).reshape(*lead, K // 32, 32, N)
+    imax = torch.argmax(x.abs(), dim=-2, keepdim=True)   # first of equals
+    d = _div(torch.gather(x, -2, imax).squeeze(-2), -8.0)  # (K//32, N)
+    nz = d != 0
+    inv = torch.where(nz, 1.0 / torch.where(nz, d, torch.ones_like(d)),
+                      torch.zeros_like(d))
+    q = torch.clamp(_nearest(x * inv.unsqueeze(-2)) + 8, 0, 15)
+    q = q.to(torch.uint8).reshape(*lead, K, N)
+    return QTensor("q4_0", (K, N), dict(
+        qs=slab_pack(q, 4, 32), d=d.to(torch.float16)))
+
+
+def dequantize_q4_0(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    lead = t.data["d"].shape[:-2]
+    q = slab_unpack(t.data["qs"], 4, 32).to(torch.float32) - 8.0
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)      # (K//32, 1, N)
+    w = d * q.reshape(*lead, K // 32, 32, N)
+    return w.reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Q8_0 (32-row blocks, int8 codes, fp16 scale)
+# ---------------------------------------------------------------------------
+
+def quantize_q8_0(w: torch.Tensor) -> QTensor:
+    K, N = _check_k(w, 32)
+    lead = w.shape[:-2]
+    x = w.to(torch.float32).reshape(*lead, K // 32, 32, N)
+    d = _div(x.abs().amax(dim=-2), 127.0)                  # (K//32, N)
+    q = torch.clamp(_nearest(x * _safe_inv(d).unsqueeze(-2)), -127, 127)
+    return QTensor("q8_0", (K, N), dict(
+        qs=q.to(torch.int8).reshape(*lead, K, N), d=d.to(torch.float16)))
+
+
+def dequantize_q8_0(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    K, N = t.shape
+    lead = t.data["d"].shape[:-2]
+    q = t.data["qs"].to(torch.float32).reshape(*lead, K // 32, 32, N)
+    d = t.data["d"].to(torch.float32).unsqueeze(-2)
+    return (d * q).reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
 _QUANTIZE = {"q2_k": quantize_q2_k, "q3_k": quantize_q3_k,
+             "q3_k_o": quantize_q3_k_o, "q4_0": quantize_q4_0,
              "q4_k": quantize_q4_k, "q5_k": quantize_q5_k,
-             "q6_k": quantize_q6_k}
+             "q6_k": quantize_q6_k, "q8_0": quantize_q8_0}
 _DEQUANTIZE = {"q2_k": dequantize_q2_k, "q3_k": dequantize_q3_k,
+               "q3_k_o": dequantize_q3_k_o, "q4_0": dequantize_q4_0,
                "q4_k": dequantize_q45, "q5_k": dequantize_q45,
-               "q6_k": dequantize_q6_k}
-
-
-def _not_ported(variant: str):
-    return NotImplementedError(
-        f"variant {variant!r} is not ported yet; the port has "
-        f"{sorted(_QUANTIZE)} (the others are still to port)")
+               "q6_k": dequantize_q6_k, "q8_0": dequantize_q8_0}
 
 
 def quantize_fn(variant: str):
-    """The packing function of an already-resolved variant."""
+    """The packing function of an already-resolved variant (unknown names
+    raise KeyError)."""
     if variant not in _QUANTIZE:
-        F.get_format(variant)               # unknown names raise KeyError
-        raise _not_ported(variant)
+        F.get_format(variant)               # raises KeyError for a typo
+        raise ValueError(f"{variant!r} is not a weight format")
     return _QUANTIZE[variant]
 
 
@@ -283,6 +406,4 @@ def quantize(variant: str, w: torch.Tensor) -> QTensor:
 
 
 def dequantize(t: QTensor, dtype=torch.float32) -> torch.Tensor:
-    if t.variant not in _DEQUANTIZE:
-        raise _not_ported(t.variant)
     return _DEQUANTIZE[t.variant](t, dtype=dtype)

@@ -39,14 +39,29 @@ SIGNATURES = {
         "bfp_matmul_q3_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
                             _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, hmask, scales, d, oidx, ovals, out, out_dtype, M, K, N,
+        # stream
+        "bfp_matmul_q3_k_o": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                              _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                              _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, d, out, out_dtype, M, K, N, stream
+        "bfp_matmul_q4_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
         # x, qs, scales, mins, d, dmin, out, out_dtype, M, K, N, stream
         "bfp_matmul_q4_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_void_p, _c_int,
                             _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, qh, scales, mins, d, dmin, out, out_dtype, M, K, N, stream
+        "bfp_matmul_q5_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
         # x, ql, qh, scales, d, out, out_dtype, M, K, N, stream
         "bfp_matmul_q6_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
                             _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, d, out, out_dtype, M, K, N, stream
+        "bfp_matmul_q8_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
     },
     "prefill_attn": {
         # q, k, v, q_pos, kv_pos, out, q_dtype, kv_dtype, B, C, T, H, KH,

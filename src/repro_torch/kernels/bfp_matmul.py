@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas``). The
 kernel (``csrc/bfp_matmul.cu``, CUDA C++ for sm_90a) reads a
-reference-packed Q2_K, Q3_K, Q4_K or Q6_K ``QTensor`` as it is,
-dequantizes each super-block on chip and accumulates in f32; the
+reference-packed ``QTensor`` of any of the eight weight variants as it
+is, dequantizes each tile on chip and accumulates in f32; the
 dequantized weight never reaches device memory. Its source note gives
 its bound and design.
 
@@ -22,10 +22,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.formats import get_format
 from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.kernels import _build
 
-VARIANTS = ("q2_k", "q3_k", "q4_k", "q6_k")
+VARIANTS = ("q2_k", "q3_k", "q3_k_o", "q4_0", "q4_k", "q5_k", "q6_k",
+            "q8_0")
 launches: Dict[str, int] = {v: 0 for v in VARIANTS}
 
 # output dtype codes of the C interface
@@ -36,11 +38,19 @@ _PAYLOADS = {
              ("d", torch.float16, 256), ("dmin", torch.float16, 256)),
     "q3_k": (("qs", torch.uint8, 4), ("hmask", torch.uint8, 8),
              ("scales", torch.uint8, 16), ("d", torch.float16, 256)),
+    "q3_k_o": (("qs", torch.uint8, 4), ("hmask", torch.uint8, 8),
+               ("scales", torch.uint8, 16), ("d", torch.float16, 256),
+               ("oidx", torch.uint8, 32), ("ovals", torch.float16, 32)),
+    "q4_0": (("qs", torch.uint8, 2), ("d", torch.float16, 32)),
     "q4_k": (("qs", torch.uint8, 2), ("scales", torch.uint8, 32),
              ("mins", torch.uint8, 32), ("d", torch.float16, 256),
              ("dmin", torch.float16, 256)),
+    "q5_k": (("qs", torch.uint8, 2), ("qh", torch.uint8, 8),
+             ("scales", torch.uint8, 32), ("mins", torch.uint8, 32),
+             ("d", torch.float16, 256), ("dmin", torch.float16, 256)),
     "q6_k": (("ql", torch.uint8, 2), ("qh", torch.uint8, 4),
              ("scales", torch.int8, 16), ("d", torch.float16, 256)),
+    "q8_0": (("qs", torch.int8, 1), ("d", torch.float16, 32)),
 }
 
 
@@ -68,9 +78,8 @@ def bfp_matmul_plain(x: torch.Tensor, t: QTensor, *,
 
 def _check(x: torch.Tensor, t: QTensor, compute_dtype, out_dtype):
     if t.variant not in _PAYLOADS:
-        raise NotImplementedError(
-            f"the CUDA kernel has no {t.variant!r} variant yet; it has "
-            f"{VARIANTS}")
+        raise ValueError(f"the CUDA kernel has no {t.variant!r} variant; it "
+                         f"has {VARIANTS}")
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"the kernel computes in bf16, got {compute_dtype}")
     if x.dim() != 2:
@@ -84,9 +93,11 @@ def _check(x: torch.Tensor, t: QTensor, compute_dtype, out_dtype):
         raise ValueError("x must be contiguous")
     M, K = x.shape
     Kt, N = t.shape
-    if K != Kt or K % 256:
+    sb = get_format(t.variant).super_block    # 256, or 32 for q4_0/q8_0
+    if K != Kt or K % sb:
         raise ValueError(f"x has K={K}, weight has K={Kt} (must match and "
-                         "be a multiple of 256)")
+                         f"be a multiple of {t.variant}'s {sb}-row "
+                         "super-block)")
     if N % 16:
         raise ValueError(f"the kernel copies 16-byte chunks of packed rows "
                          f"and needs N % 16 == 0, got N={N}")

@@ -8,6 +8,15 @@ queue of requests through the continuous-batching engine.
       --policy extended_mix --prompt-len 384 --prefill-chunk 128 \
       --prefill-bucket 128 --cache-len 1024 --tokens 32
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy auto --policy-json results/auto_tinyllama.json
+
+``--policy auto`` loads the searched policy file ``--policy-json`` if it
+exists (recalibrating first when a rule asks for q3_k_o, whose outlier
+rows follow the activation stats) and otherwise runs the policy search
+(``launch/policy_search.py``, ``--search-rounds`` refinement rounds),
+writes the file and packs with the stats the search used.
+
 The weights and prompts are random, drawn from seed 0. The model runs on the GPU
 (``--device cuda``, the default; it raises where there is none). Add
 ``--reduced --device cpu`` for a small run on the CPU through the
@@ -16,13 +25,15 @@ kernel's plain PyTorch version.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import get_arch
-from repro_torch.core.policy import get_policy
+from repro_torch.core import calibrate as CAL
+from repro_torch.core.policy import get_policy, load_policy
 from repro_torch.core.qlinear import (quantize_params, quantized_param_bytes,
                                       variant_counts)
 from repro_torch.device import resolve_device
@@ -32,12 +43,56 @@ from repro_torch.serving.engine import Engine, ServeConfig
 SEED = 0            # random weights and prompts
 
 
+def resolve_policy(cfg, params, *, policy: str, arch: str,
+                   policy_json=None, search_rounds: int = 2,
+                   device="cuda"):
+    """(QuantPolicy, calib, info) for ``--policy``: a named preset, or
+    "auto", which loads ``policy_json`` (default
+    ``results/auto_<arch>.json``) if it exists and otherwise searches and
+    writes it. ``calib`` maps parameter paths to the activation abs-max
+    that q3_k_o packing uses (None for a preset); ``info`` is the
+    search's (None unless it ran). As in the reference, a loaded file with
+    a q3_k_o rule recalibrates, and the stats are looked up by the rules'
+    patterns: a glob rule such as ``*mlp/w_gate`` matches no tap name, so
+    that rule packs without them."""
+    if policy != "auto":
+        return get_policy(policy), None, None
+    from repro_torch.launch.policy_search import (save_searched_policy,
+                                                  search_policy)
+    path = policy_json or f"results/auto_{arch}.json"
+    if os.path.exists(path):
+        pol = load_policy(path)
+        print(f"loaded searched policy from {path}")
+        calib = None
+        if any(v == "q3_k_o" for _, v in pol.rules):
+            # q3_k_o weighs outliers by activation abs-max; redo the
+            # (cheap, deterministic) calibration pass
+            stats = CAL.run_calibration(params, cfg)
+            calib = stats.for_paths([p for p, _ in pol.rules])
+        return pol, calib, None
+    pol, info = search_policy(cfg, params, arch=arch, rounds=search_rounds,
+                              device=device)
+    save_searched_policy(path, pol, info)
+    print(f"searched policy written to {path}")
+    # pack with the activation stats the search's verified evals used
+    return pol, info["stats"].for_paths([p for p, _ in pol.rules]), info
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--policy", default="default_serve_mix",
-                    help="named policy from core.policy.POLICIES")
+                    help="named policy from core.policy.POLICIES, or "
+                         "'auto' to load/search a calibrated per-layer "
+                         "assignment (see --policy-json)")
+    ap.add_argument("--policy-json", default=None,
+                    help="searched-policy JSON for --policy auto; if the "
+                         "file exists it is loaded, otherwise the search "
+                         "runs and writes it (default: "
+                         "results/auto_<arch>.json)")
+    ap.add_argument("--search-rounds", type=int, default=2,
+                    help="refinement rounds for the --policy auto search")
     ap.add_argument("--requests", type=int, default=4,
                     help="queue depth (may exceed --slots)")
     ap.add_argument("--slots", type=int, default=4,
@@ -63,7 +118,11 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = T.init_params(cfg, gen, device=dev)
     t0 = time.perf_counter()
-    qp, report = quantize_params(params, get_policy(args.policy))
+    policy, calib, _ = resolve_policy(
+        cfg, params, policy=args.policy, arch=args.arch,
+        policy_json=args.policy_json, search_rounds=args.search_rounds,
+        device=dev)
+    qp, report = quantize_params(params, policy, calib=calib)
     del params
     sizes = quantized_param_bytes(qp)
     print(f"quantized with policy {args.policy} in "

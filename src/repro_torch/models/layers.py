@@ -6,8 +6,10 @@ which case the matmul goes to ``kernels.ops.bfp_matmul`` (the CUDA kernel
 on the card). Shapes and layouts are the reference's:
 q ``(B, S, H, D)``, caches ``(B, T, KH, D)``, positions ``(B, S)``.
 
-Attention is the reference's materializing ``naive`` path in f32, or,
-for a prefill chunk with ``impl="fused"``, the fused flash-style kernel
+The matmul inputs feed ``core.calibrate.tap`` at the reference's sites
+(inert outside ``calibrate.collecting``). Attention is the reference's
+materializing ``naive`` path in f32, or, for a prefill chunk with
+``impl="fused"``, the fused flash-style kernel
 ``kernels.prefill_attn.prefill_attn_fused`` (the CUDA kernel on the card,
 its plain version on the CPU).
 """
@@ -19,6 +21,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.core import calibrate as CAL
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.prefill_attn import prefill_attn_fused
@@ -169,6 +172,9 @@ def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *,
 # ---------------------------------------------------------------------------
 
 def swiglu_mlp(x, p: Dict, *, impl="auto"):
+    CAL.tap(("mlp/w_gate", "mlp/w_up"), x)
     g = dense(x, p["w_gate"], impl=impl)
     u = dense(x, p["w_up"], impl=impl)
-    return dense(Fn.silu(g) * u, p["w_down"], impl=impl)
+    h = Fn.silu(g) * u
+    CAL.tap("mlp/w_down", h)
+    return dense(h, p["w_down"], impl=impl)

@@ -6,8 +6,10 @@ with the reference's paths and stacked layer axis; a weight may be a packed
 ``QTensor`` whose payloads carry that axis too. The reference's layer
 ``scan`` is a Python loop over layers that indexes the stacked tensors.
 
-Caches: ``k``/``v`` of shape ``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)``
-int32 with -1 for an empty slot, as in the reference. Where the reference
+``forward_seq`` is the cache-free full-sequence forward that calibration
+and the quality metrics run. Caches: ``k``/``v`` of shape
+``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)`` int32 with -1 for an empty
+slot, as in the reference. Where the reference
 returns an updated copy, ``decode_step``, ``prefill_chunk`` and
 ``cache_set_slots`` update the cache tensors in place (saving a copy of
 the whole cache per step) and return the same dict.
@@ -20,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core import calibrate as CAL
 from repro_torch.core.quantize import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -103,6 +106,7 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 
 def _logits(params, cfg: ModelConfig, h, impl="auto"):
+    CAL.tap("lm_head", h)
     return L.dense(h, params["lm_head"], impl=impl).to(torch.float32)
 
 
@@ -110,6 +114,7 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
     B, S, _ = a_in.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     attn = lp["attn"]
+    CAL.tap(("attn/wq", "attn/wk", "attn/wv"), a_in)
     q = L.dense(a_in, attn["wq"], impl=impl).reshape(B, S, H, Dh)
     k = L.dense(a_in, attn["wk"], impl=impl).reshape(B, S, KH, Dh)
     v = L.dense(a_in, attn["wv"], impl=impl).reshape(B, S, KH, Dh)
@@ -119,6 +124,7 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
 def _attn_out(o, lp, cfg, impl):
     B, S = o.shape[:2]
     o = o.reshape(B, S, o.shape[2] * o.shape[3])
+    CAL.tap("attn/wo", o)
     return L.dense(o, lp["attn"]["wo"], impl=impl)
 
 
@@ -311,3 +317,61 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
         valid, positions.to(torch.int32), old_pos[bidx, slot])
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
     return h, cache
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (calibration and quality evaluation)
+# ---------------------------------------------------------------------------
+
+# the longest sequence the "auto" attention takes naive, as the reference
+NAIVE_MAX_SEQ = 2048
+
+
+def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "naive" if S <= NAIVE_MAX_SEQ else "blockwise"
+    if impl == "naive":
+        return L.naive_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window,
+                                 softcap=cfg.attn_logit_softcap)
+    if impl == "fused":
+        B, S2 = q.shape[:2]
+        pos = torch.arange(S2, dtype=torch.int32, device=q.device)
+        pos = pos[None].expand(B, S2).contiguous()
+        return L.prefill_attn_fused(q, k, v, pos, pos,
+                                    window=cfg.sliding_window,
+                                    softcap=cfg.attn_logit_softcap)
+    raise NotImplementedError(
+        f"attention impl {impl!r} (S={S}) is not ported yet: the port has "
+        f"naive (S <= {NAIVE_MAX_SEQ} under 'auto') and fused")
+
+
+def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
+    a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
+    q, k, v = _qkv(a_in, lp, cfg, impl)
+    cos, sin = cos_sin
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    o = _seq_attention(q, k, v, cfg, h.shape[1])
+    h = h + _attn_out(o, lp, cfg, impl)
+    m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
+    return h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+
+
+def forward_seq(params, cfg: ModelConfig, *, tokens):
+    """Full-sequence causal forward of tokens (B, S) at positions 0..S-1,
+    with no cache. Returns logits (B, S, V) in f32 (the reference's first
+    output; the dense family has no aux loss, and the port no
+    ``want_cache``)."""
+    _check_family(cfg)
+    impl = cfg.kernel_impl
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    h = _embed(params, cfg, tokens)
+    cos_sin = L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    for li in range(cfg.n_layers):
+        h = _attn_layer_seq(h, _layer(params["layers"], li), cfg, cos_sin,
+                            impl)
+    h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
+    return _logits(params, cfg, h, impl=impl)

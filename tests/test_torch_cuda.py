@@ -81,6 +81,66 @@ def test_kernel_rows_independent_of_m(cuda_device, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("M,K,N", [(1, 288, 96), (33, 288, 320),
+                                   (4, 2080, 256), (128, 2080, 256)])
+def test_kernel_32_row_formats_take_k_multiple_of_32(cuda_device, variant,
+                                                      M, K, N):
+    """Q4_0 and Q8_0 have 32-row super-blocks: a K that is a multiple of 32
+    and not of 256 leaves a partial last tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(K + M)
+    t = PQ.quantize(variant, torch.randn(K, N, generator=g,
+                                         device=cuda_device) / K ** 0.5)
+    assert t.variant == variant
+    x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+    ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _rel_err(y, ref) <= TOL_F32
+    assert torch.equal(PB.bfp_matmul_cuda(x[:1], t)[0],
+                       PB.bfp_matmul_cuda(x, t)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [v for v in PB.VARIANTS if v != "q3_k_o"])
+def test_packing_on_the_card_equals_the_cpu(cuda_device, variant):
+    """Every payload byte agrees at a real projection shape: the scale
+    divisions are true divisions on the card too (a division by a Python
+    scalar there is a multiply by its reciprocal, one ulp off for some
+    values)."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    w = torch.randn(2048, 5632, generator=g, device=cuda_device)
+    gpu, cpu = PQ.quantize(variant, w), PQ.quantize(variant, w.cpu())
+    for k, v in cpu.data.items():
+        assert torch.equal(v.view(torch.uint8),
+                           gpu.data[k].cpu().view(torch.uint8)), k
+
+
+@pytest.mark.cuda
+def test_q3_k_o_packing_on_the_card_equals_the_cpu(cuda_device):
+    """torch.topk on CUDA picks the same sidecar rows as on the CPU: every
+    payload byte agrees, stacked layers and activation stats included. The
+    scores are tie-free (distinct |w| in each column, activation stats of
+    powers of two): on tied scores the two devices order the tied rows
+    differently."""
+    rng = np.random.default_rng(9)
+    K, N = 512, 160
+    mag = 1 + np.stack([np.stack([rng.permutation(K) for _ in range(N)], 1)
+                        for _ in range(2)]) / K
+    w = torch.from_numpy((mag * rng.choice([-1, 1], mag.shape)).astype(
+        np.float32))
+    a = torch.from_numpy((2.0 ** rng.integers(0, 3, K)).astype(np.float32))
+    for act in (None, a):
+        cpu = PQ.quantize_q3_k_o(w, act_absmax=act)
+        gpu = PQ.quantize_q3_k_o(
+            w.to(cuda_device),
+            act_absmax=None if act is None else act.to(cuda_device))
+        for k, v in cpu.data.items():
+            assert torch.equal(v.view(torch.uint8),
+                               gpu.data[k].cpu().view(torch.uint8)), k
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     t = PQ.quantize("q3_k", torch.randn(256, 64, device=cuda_device))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -94,6 +154,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     t8 = PQ.quantize("q2_k", torch.randn(256, 200, device=cuda_device))
     with pytest.raises(ValueError, match="N % 16"):
         PO.bfp_matmul(torch.zeros(2, 256, device=cuda_device), t8,
+                      impl="cuda")
+    t0 = PQ.quantize("q4_0", torch.randn(288, 64, device=cuda_device))
+    with pytest.raises(ValueError, match="32-row super-block"):
+        PO.bfp_matmul(torch.zeros(2, 272, device=cuda_device), t0,
                       impl="cuda")
 
 

@@ -1,8 +1,10 @@
 """The port's packing against the reference, bit for bit.
 
-Q2_K, Q3_K, Q4_K, Q5_K and Q6_K quantize/dequantize (golden super-blocks
-included), the slab layout, the stacked ``quantize_params`` tree of
-reduced tinyllama under ``paper_llama_mix`` and its per-path report
+All eight weight variants' quantize/dequantize (golden super-blocks
+included; q3_k_o also with activation stats, q4_0/q8_0 also at a K that
+is a multiple of 32 and not of 256), the slab layout, the stacked
+``quantize_params`` tree of reduced tinyllama under ``paper_llama_mix``
+and its per-path report
 (``extended_mix``'s is in ``test_torch_extended.py``), and the mirrored
 configs, format registry and policies. Inputs come from a seeded numpy
 generator and go through both packages; payloads are compared as raw
@@ -44,7 +46,7 @@ def _assert_qtensor_bytes(jt, pt):
         assert _same_bytes(np.asarray(jt.data[k]), pt.data[k].numpy()), k
 
 
-PORTED = ["q2_k", "q3_k", "q4_k", "q5_k", "q6_k"]
+PORTED = ["q2_k", "q3_k", "q3_k_o", "q4_0", "q4_k", "q5_k", "q6_k", "q8_0"]
 
 
 @pytest.mark.parametrize("variant", PORTED)
@@ -244,15 +246,114 @@ def test_format_registry_and_policy_mirror():
             mod.pick_fallback("q3_k", 100)
 
 
-def test_unported_variant_raises():
+def test_unknown_variant_raises():
     w = torch.zeros(256, 32)
-    with pytest.raises(NotImplementedError):
-        PQ.quantize("q4_0", w)
     with pytest.raises(KeyError):
         PQ.quantize("q9_z", w)
+    with pytest.raises(KeyError):
+        JQ.quantize("q9_z", jnp.asarray(w.numpy()))
 
 
-@pytest.mark.parametrize("variant", ["q3_k_o", "q8_0"])
-def test_other_unported_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PQ.quantize(variant, torch.zeros(256, 32))
+@pytest.mark.parametrize("variant", ["q4_0", "q8_0"])
+def test_32_row_formats_ragged_k_bitexact(variant):
+    """K = 288: a multiple of 32 and not of 256, where q8_0 is the
+    fallback of every k-quant (formats.pick_fallback)."""
+    rng = np.random.default_rng(["q4_0", "q8_0"].index(variant) + 40)
+    w = (rng.standard_normal((288, 64)) * 0.05).astype(np.float32)
+    w[3, :] = 0.0                           # all-zero rows in one block
+    pt = PQ.quantize(variant, torch.from_numpy(w))
+    jt = JQ.quantize(variant, jnp.asarray(w))
+    _assert_qtensor_bytes(jt, pt)
+    assert _same_bytes(np.asarray(JQ.dequantize(jt)),
+                       PQ.dequantize(pt).numpy())
+    assert PQ.quantize("q3_k", torch.from_numpy(w)).variant == "q8_0"
+
+
+def test_q3_k_o_activation_stats_bitexact():
+    """Scores |w| * act_absmax pick the sidecar rows; stacked layers share
+    one stats vector, as the reference's vmap with a closed-over vector
+    gives. Random f32 scores do not tie, so top_k order agrees."""
+    rng = np.random.default_rng(15)
+    w = rng.standard_normal((2, 512, 48)).astype(np.float32)
+    a = (rng.random(512) + 0.5).astype(np.float32)
+    a[77] = 1e4                             # a hot activation row
+    pt = PQ.quantize_q3_k_o(torch.from_numpy(w), act_absmax=a)
+    jt = jax.vmap(lambda x: JQ.quantize_q3_k_o(x, act_absmax=a))(
+        jnp.asarray(w))
+    _assert_qtensor_bytes(jt, pt)
+    oidx = pt.data["oidx"].numpy().reshape(2, 2, 8, 48)
+    assert (oidx[:, 0] == 77).any(axis=1).all()     # in every column
+
+
+def _col_dup(w1):
+    return w1[:, None] * (2.0 ** np.arange(2))[None, :]
+
+
+def test_golden_q3_k_o_superblock_with_outlier_sidecar():
+    # the reference's golden block (test_formats_golden.py): the q3_k
+    # pattern plus 8 outlier rows per super-block at in-block offset 5
+    # with distinct descending magnitudes, so the top-k order is fixed
+    d = 0.25
+    sc_q = 2 * np.arange(16) + 1
+    qpat = np.tile(np.arange(-4, 4), 2)
+    base1 = ((d * sc_q)[:, None] * qpat[None, :]).reshape(256)
+    orows = 16 * np.arange(8) + 5
+    ovals1 = 100.0 * (8 - np.arange(8))
+    wfull1 = base1.copy()
+    wfull1[orows] = ovals1
+    w = _col_dup(wfull1)
+    t = PQ.quantize("q3_k_o", torch.tensor(w, dtype=torch.float32))
+    assert t.variant == "q3_k_o" and t.shape == (256, 2)
+    np.testing.assert_array_equal(
+        t.data["oidx"].numpy(),
+        np.repeat(orows.astype(np.uint8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(t.data["ovals"].float().numpy(),
+                                  _col_dup(ovals1))
+    np.testing.assert_array_equal(
+        t.data["scales"].numpy(),
+        np.repeat((sc_q + 32).astype(np.uint8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(t.data["d"].float().numpy(), [[d, 2 * d]])
+    stored1 = (np.tile(qpat, 16) + 4).astype(np.uint8)
+    stored1[orows] = 4
+    stored = np.repeat(stored1[:, None], 2, axis=1)
+    np.testing.assert_array_equal(
+        t.data["qs"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(stored & 3), 2, 256)))
+    np.testing.assert_array_equal(
+        t.data["hmask"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(stored >> 2), 1, 256)))
+    np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)   # exact
+    _assert_qtensor_bytes(JQ.quantize("q3_k_o", jnp.asarray(w, jnp.float32)),
+                          t)
+
+
+def test_golden_q4_0_blocks():
+    # block 0 has a negative extreme (d = +0.5), block 1 a positive one
+    # (d = -0.25): llama.cpp's sign convention d = mval / -8
+    qpat = np.tile(np.arange(16), 2)
+    d_blocks = np.array([0.5, -0.25])
+    w1 = (d_blocks[:, None] * (qpat[None, :] - 8.0)).reshape(64)
+    w = _col_dup(w1)
+    t = PQ.quantize("q4_0", torch.tensor(w, dtype=torch.float32))
+    assert t.variant == "q4_0" and t.shape == (64, 2)
+    np.testing.assert_array_equal(t.data["d"].float().numpy(),
+                                  np.stack([d_blocks, 2 * d_blocks], axis=1))
+    qkn = np.repeat(qpat[None].repeat(2, 0).reshape(64)[:, None].astype(
+        np.uint8), 2, axis=1)
+    np.testing.assert_array_equal(
+        t.data["qs"].numpy(),
+        np.asarray(JF.slab_pack(jnp.asarray(qkn), 4, 32)))
+    np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)   # exact
+
+
+def test_golden_q8_0_block():
+    # one 32-block: d = 0.5 pinned by |q| = 127; codes stored verbatim
+    qpat = np.concatenate([[127, -127, 0, 1, -1], np.arange(-13, 14)])
+    w = _col_dup(0.5 * qpat)
+    t = PQ.quantize("q8_0", torch.tensor(w, dtype=torch.float32))
+    assert t.variant == "q8_0"
+    np.testing.assert_array_equal(
+        t.data["qs"].numpy(),
+        np.repeat(qpat.astype(np.int8)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(t.data["d"].float().numpy(), [[0.5, 1.0]])
+    np.testing.assert_array_equal(PQ.dequantize(t).numpy(), w)

@@ -50,7 +50,8 @@ def test_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.bridge; print('ok')")
+            "repro_torch.launch.policy_search, repro_torch.core.calibrate, "
+            "repro_torch.core.quality, repro_torch.bridge; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -65,3 +66,19 @@ def test_engine_without_device_raises_where_no_gpu():
     from repro_torch.serving.engine import Engine, ServeConfig
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(get_arch("tinyllama-1.1b", reduced=True), {}, ServeConfig())
+
+
+def test_policy_entry_points_raise_where_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is valid here")
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import quality
+    from repro_torch.launch import policy_search, serve
+    cfg = get_arch("tinyllama-1.1b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        policy_search.search_policy(cfg, {}, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality.eval_tokens(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--policy",
+                    "auto"])

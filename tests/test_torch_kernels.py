@@ -35,7 +35,8 @@ TOL_F32 = 1e-5
 TOL_BF16 = 2.0 ** -7
 TOL_REF = 2e-2
 
-# (M, K, N): every M of {1, 3, 8, 33}, every K of {256, 512, 768}, ragged N
+# (M, K, N): every M of {1, 3, 8, 33}, every K of {256, 512, 768}, ragged N;
+# every variant (K = 288 for the 32-row formats below)
 SHAPES = [(1, 256, 96), (3, 512, 320), (8, 768, 96), (33, 256, 320),
           (3, 768, 320)]
 
@@ -88,6 +89,20 @@ def test_rows_independent_of_m(variant):
     for m in (0, 5, 32):
         assert torch.equal(PO.bfp_matmul(x[m:m + 1], pt)[0], full[m])
     assert torch.equal(PO.bfp_matmul(x[:8], pt), full[:8])
+
+
+@pytest.mark.parametrize("variant", ["q4_0", "q8_0"])
+def test_plain_32_row_formats_ragged_k(variant):
+    """Q4_0 and Q8_0 take a K that is a multiple of 32 and not of 256."""
+    for i, (M, K, N) in enumerate([(3, 288, 96), (33, 288, 320)]):
+        pt, jt = _packed(variant, K, N, seed=200 + i)
+        x = np.random.default_rng(50 + i).standard_normal((M, K)).astype(
+            np.float32)
+        yp = PO.bfp_matmul(torch.from_numpy(x), pt)
+        yj = JO.bfp_matmul(jnp.asarray(x), jt, impl="pallas", interpret=True)
+        assert _rel_err(yp.numpy(), yj) <= TOL_F32, (M, K, N)
+        assert _rel_err(yp.numpy(), JR.matmul_ref(jnp.asarray(x), jt)) \
+            <= TOL_REF
 
 
 def test_leading_dims_and_impls():
