@@ -69,6 +69,31 @@ Phases, each of which exits nonzero on failure:
    tokens must equal generate_reference.
 9. timing, slice 3: Q3_K_O/Q4_0/Q5_K/Q8_0 as in phase 4 on the hand-written
    layout, at decode M and at the search's M (128).
+10. kernels, slice 4: the Q8_K quantization kernel against its plain
+   version on the card and on the CPU, byte for byte (qs, d, bsums), at M
+   in {1, 4, 33, 512} and K in {768, 2048, 3072, 5632}, f32 and bf16, with
+   zero super-blocks, with and without a row mask that masks rows (masked
+   rows all zero). The dequant-matmul at any N: gpt2-paper's LM head
+   (768, 50257) in q2_k and one N = 8 (mod 16) shape per variant against
+   the plain version, row 0 of M=33 equal to M=1 bit for bit.
+11. serve, slice 4: full-width mobilellama-1.4b under paper_llama_mix and
+   gpt2-paper under paper_gpt2_mix, path 1's traffic; every forward must
+   launch 49 q2_k + 120 q3_k and 25 q2_k + 24 q3_k kernels, and greedy
+   tokens must equal generate_reference.
+12. integer path, slice 4: for each of tinyllama-1.1b, mobilellama-1.4b
+   and gpt2-paper, every MatMul of the packed model (its paper mix) runs
+   through the ISA driver and simulator (``isa.run_matmul``) at M = 4,
+   with the Q8_K kernel's count zeroed just before and read just after:
+   one launch per SCHEDULE, 1,665, 2,141 and 521 a forward. Each result is
+   held against ``matmul_q8k_ref(ops.q8k_quantize(x), t)``, and that
+   against ``matmul_ref(dequantize_q8_k(qx), t)``, at 1e-5 relative; the
+   paper's traffic model (``total_stream_bytes``) is printed per forward.
+13. timing, slice 4: the Q8_K kernel over the launches of one tinyllama
+   integer-path forward (timed in groups of 256 launches, each behind its
+   own spin kernel, and summed: a stream queues only about a thousand
+   launches) and once at (4096, 5632), beside its bound and the plain
+   version's time; the N = 50257 q2_k head at decode M beside its bound
+   and torch.matmul on the pre-dequantized bf16 weight.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -86,6 +111,7 @@ from pathlib import Path
 # card peaks for bound_ms (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12     # CUDA cores, outside the tensor cores
 
 TOL_F32 = 1e-5          # kernel vs plain, f32 out: summation order only
 TOL_BF16 = 2.0 ** -7    # bf16 out: one bf16 ulp at the output's max
@@ -124,6 +150,24 @@ HAND_PER_FORWARD = {"q4_0": 22, "q5_k": 22, "q3_k_o": 22, "q8_0": 22,
                     "q3_k": 67}
 SLICE3_VARIANTS = ("q3_k_o", "q4_0", "q5_k", "q8_0")
 RAGGED_K = ((2080, 256),)       # K % 32 == 0, K % 256 != 0
+# slice 4: the integer (Q8_K) datapath at M = 4 over every MatMul of the
+# paper's three models; SCHEDULEs (one Q8_K launch each) per forward, by
+# the reference's generate_stream
+M_INT = 4
+TOL_INT = 1e-5          # the reference's test_isa.py tolerance
+INT_SCHEDULES = {"tinyllama-1.1b": 1665, "mobilellama-1.4b": 2141,
+                 "gpt2-paper": 521}
+PAPER_MODELS = (("mobilellama-1.4b", "paper_llama_mix",
+                 {"q2_k": 49, "q3_k": 120}),
+                ("gpt2-paper", "paper_gpt2_mix", {"q2_k": 25, "q3_k": 24}))
+Q8K_MS = (1, 4, 33, 512)
+Q8K_KS = (768, 2048, 3072, 5632)
+Q8K_BIG = (4096, 5632)
+Q8K_BYTES_PER_VALUE = 4 + 1 + 4 / 256 + 2 / 16   # f32 in; qs, d, bsums out
+GPT2_HEAD = (768, 50257)
+# launches per timed group: the kernel's wrapper launches one kernel a
+# call, the plain version about twenty small ones
+Q8K_GROUP, Q8K_GROUP_PLAIN = 256, 16
 # each variant at the M of every path that runs it: q3_k is on all three
 MATMUL_CASES = (("q2_k", SHAPES, (M_DECODE, M_PREFILL, M_SEARCH)),
                 ("q3_k", SHAPES, (M_DECODE, M_PREFILL, M_PREFILL2,
@@ -670,6 +714,223 @@ def phase_load(torch, cfg, params, resolve_policy, quantize_params,
     return qp
 
 
+def _bytes_equal(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def phase_q8k(torch, PK, dev):
+    """The Q8_K kernel against its plain version, on the card and on the
+    CPU, byte for byte; returns the largest absolute difference of any
+    output from the plain version on the card."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in Q8K_MS:
+            for K in Q8K_KS:
+                x = (torch.randn(M, K, generator=g, device=dev) * 3).to(dtype)
+                x[0, :256] = 0                  # zero super-blocks
+                x[-1, -512:] = 0
+                mask = torch.rand(M, generator=g, device=dev) < 0.7
+                mask[0] = False                 # at least one masked row
+                for valid in (None, mask):
+                    got = PK.q8k_quantize_cuda(x, valid)
+                    want = PK.q8k_quantize_plain(x, valid)
+                    cpu = PK.q8k_quantize_plain(
+                        x.cpu(), None if valid is None else valid.cpu())
+                    torch.cuda.synchronize()
+                    for k in ("qs", "d", "bsums"):
+                        check(_bytes_equal(torch, got[k], want[k])
+                              and _bytes_equal(torch, got[k].cpu(), cpu[k]),
+                              f"q8k_quantize {dtype} M={M} K={K} mask="
+                              f"{valid is not None}: {k} differs")
+                        worst = max(worst, float(
+                            (got[k].double() - want[k].double()).abs().max()))
+                    if valid is not None:
+                        check(not any(bool(got[k][~valid].any())
+                                      for k in got),
+                              "a masked row has a nonzero payload")
+                    cases += 1
+    print(f"[kernels] q8k_quantize: {cases} cases (M in {Q8K_MS}, K in "
+          f"{Q8K_KS}, f32 and bf16, zero super-blocks, with and without a "
+          f"row mask): card == plain on the card == plain on the CPU, byte "
+          f"for byte; masked rows all zero", flush=True)
+    return worst
+
+
+def phase_any_n(torch, Q, PB, dev):
+    """The dequant-matmul at N % 16 != 0; returns the max abs error (f32
+    output) of the gpt2-paper head shape."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    worst = 0.0
+    cases = [("q2_k", GPT2_HEAD)] + [(v, (2048, 2056)) for v in PB.VARIANTS]
+    for variant, (K, N) in cases:
+        t = Q.quantize(variant, torch.randn(K, N, generator=g, device=dev)
+                       / K ** 0.5)
+        ld = t.data[next(iter(t.data))].stride(0)
+        for M in (M_DECODE, 33):
+            x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+            y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+            ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+            yb = PB.bfp_matmul_cuda(x, t)
+            rb = PB.bfp_matmul_plain(x, t)
+            torch.cuda.synchronize()
+            e32, e16 = rel_err(y, ref), rel_err(yb, rb)
+            if (K, N) == GPT2_HEAD:
+                worst = max(worst, float((y - ref).abs().max()))
+            print(f"[kernels] {variant} M={M:2d} K={K} N={N} (row stride "
+                  f"{ld}): f32 rel {e32:.2e} (tol {TOL_F32:.0e}), bf16 rel "
+                  f"{e16:.2e} (tol {TOL_BF16:.2e})", flush=True)
+            check(y.shape == (M, N) and bool(torch.isfinite(y).all()),
+                  "bad output")
+            check(e32 <= TOL_F32, f"{variant} {M}x{K}x{N} f32 error")
+            check(e16 <= TOL_BF16, f"{variant} {M}x{K}x{N} bf16 error")
+        row_ok = torch.equal(PB.bfp_matmul_cuda(x, t)[0],
+                             PB.bfp_matmul_cuda(x[:1], t)[0])
+        check(row_ok, f"{variant} N={N}: a row depends on M")
+    print("[kernels] any N: row 0 of M=33 == M=1 bit for bit: True",
+          flush=True)
+    return worst
+
+
+def phase_integer(torch, cfg, qp, isa, PK, ops, ref, Q, model_matmuls, dev,
+                  tag):
+    """Every MatMul of the packed model through the ISA driver and
+    simulator at M = 4 (the main path of the integer datapath), the Q8_K
+    kernel's count zeroed just before and read just after; then each
+    result against the integer oracle and that against the dequantized
+    product."""
+    mats = []
+    layer = {}
+    for path, K, N in model_matmuls(cfg):
+        node = qp
+        for part in path.split("/"):
+            node = node[part]
+        i = layer[path] = layer.get(path, -1) + 1
+        mats.append((path, node.layer(i) if path != "lm_head" else node))
+    g = torch.Generator(device=dev).manual_seed(8)
+    xs = [torch.randn(M_INT, t.shape[0], generator=g, device=dev)
+          for _, t in mats]
+    torch.cuda.synchronize()
+    PK.reset_launches()
+    t0 = time.perf_counter()
+    runs = [isa.run_matmul(x, t, device=dev) for x, (_, t) in zip(xs, mats)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PK.launches["q8k_quantize"]
+    schedules = sum(st.schedules for _, st in runs)
+    total = isa.SimStats()
+    for _, st in runs:
+        for f in ("weight_bytes", "input_bytes", "output_bytes",
+                  "schedules"):
+            setattr(total, f, getattr(total, f) + getattr(st, f))
+    print(f"[{tag}] {cfg.name}: {len(mats)} MatMuls at M={M_INT} through "
+          f"the ISA simulator in {wall:.2f}s: {schedules} SCHEDULEs, "
+          f"q8k_quantize launches {launches}; traffic model per forward: "
+          f"weights {total.weight_bytes} + inputs {total.input_bytes} + "
+          f"outputs {total.output_bytes} = {total.total_stream_bytes} "
+          f"bytes", flush=True)
+    want = INT_SCHEDULES[cfg.name]
+    check(schedules == want and launches == want,
+          f"{cfg.name}: expected {want} SCHEDULEs, one q8k_quantize launch "
+          f"each; got {schedules} SCHEDULEs and {launches} launches")
+    e_sim = e_int = 0.0
+    for x, (path, t), (out, _) in zip(xs, mats, runs):
+        qx = ops.q8k_quantize(x)
+        oi = ref.matmul_q8k_ref(qx, t)
+        od = ref.matmul_ref(Q.dequantize_q8_k(qx), t)
+        check(out.shape == (M_INT, t.shape[1])
+              and bool(torch.isfinite(out).all()), f"{path}: bad output")
+        e_sim = max(e_sim, rel_err(out, oi))
+        e_int = max(e_int, rel_err(oi, od))
+    print(f"[{tag}] {cfg.name}: simulator vs matmul_q8k_ref rel {e_sim:.2e}"
+          f", integer vs dequantized product rel {e_int:.2e} (tol "
+          f"{TOL_INT:.0e})", flush=True)
+    check(e_sim <= TOL_INT, f"{cfg.name}: simulator disagrees with the "
+          "integer oracle")
+    check(e_int <= TOL_INT, f"{cfg.name}: integer datapath disagrees with "
+          "the dequantized product")
+    # what the SCHEDULEs quantized: at M = 4 every plan loads the whole
+    # input once and takes K in one tile, so each quantizes its (4, K) x
+    sched_inputs = []
+    for x, (_, t), (_, st) in zip(xs, mats, runs):
+        plan = isa.plan_tiling(M_INT, *t.shape, t.variant)
+        check(plan.whole_input and plan.tile_k == t.shape[0],
+              f"{t.variant} {t.shape}: the plan splits K or the input")
+        sched_inputs += [x] * st.schedules
+    return dict(launches=launches, schedules=schedules, wall_s=wall,
+                matmuls=len(mats), weight_bytes=total.weight_bytes,
+                input_bytes=total.input_bytes,
+                output_bytes=total.output_bytes,
+                total_stream_bytes=total.total_stream_bytes,
+                max_rel_err=max(e_sim, e_int)), sched_inputs
+
+
+def phase_q8k_timing(torch, PK, sched_inputs, dev):
+    """The Q8_K kernel's launches of one tinyllama integer-path forward
+    (each SCHEDULE quantizes its (4, K) input) and one launch at
+    (4096, 5632), beside the bound and the plain version. No single
+    PyTorch call computes Q8_K, so there is no library time."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn(*Q8K_BIG, generator=g, device=dev)
+    res = {}
+    for name, xs in (("forward", sched_inputs), ("single", [big])):
+        # the forward's 1,665 launches are timed in groups, each behind its
+        # own spin kernel, and summed: a stream queues about a thousand
+        # launches, and past that the host waits on the device, so one
+        # group of them all would time the host's launch rate
+        kern = sum(_device_ms(torch, lambda c=c: [PK.q8k_quantize_cuda(x)
+                                                  for x in c], 10)
+                   for c in _groups(xs, Q8K_GROUP))
+        plain = sum(_device_ms(torch, lambda c=c: [PK.q8k_quantize_plain(x)
+                                                   for x in c], 3)
+                    for c in _groups(xs, Q8K_GROUP_PLAIN))
+        values = sum(x.numel() for x in xs)
+        nbytes = values * Q8K_BYTES_PER_VALUE
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # abs, max, multiply, round and clamp: ~5 f32 operations a value
+        t_ops = values * 5 / F32_FLOPS_PER_S * 1e3
+        res[name] = dict(ms=kern, plain_ms=plain,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else
+                         "operations", launches=len(xs), bytes=nbytes)
+        print(f"[timing4] q8k_quantize {name} ({len(xs)} launches, "
+              f"{values} values): kernel {kern:.4f} ms, bound "
+              f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}, "
+              f"{nbytes / 1e6:.3f} MB), plain {plain:.4f} ms; no single "
+              f"PyTorch call computes Q8_K (no library time)", flush=True)
+    return res
+
+
+def _groups(xs, n):
+    return [xs[i:i + n] for i in range(0, len(xs), n)]
+
+
+def phase_head_timing(torch, qp, Q, PB, dev):
+    """gpt2-paper's N = 50257 q2_k LM head at decode M."""
+    t = qp["lm_head"]
+    K, N = t.shape
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(M_DECODE, K, generator=g, device=dev).bfloat16()
+    w = Q.dequantize(t, torch.bfloat16)
+    kern = _device_ms(torch, lambda: [PB.bfp_matmul_cuda(x, t)], 20)
+    plain = _device_ms(torch, lambda: [PB.bfp_matmul_plain(x, t)], 3)
+    lib = _device_ms(torch, lambda: [torch.matmul(x, w)], 20)
+    nbytes = x.numel() * 2 + t.nbytes + M_DECODE * N * 2
+    flops = 2 * M_DECODE * K * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    res = dict(ms=kern, plain_ms=plain, library_ms=lib,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               launches_per_forward=1, bytes=nbytes, flops=flops)
+    print(f"[timing4] q2_k gpt2-paper LM head ({K}, {N}) at M={M_DECODE}: "
+          f"kernel {kern:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}, {nbytes / 1e6:.2f} MB), plain {plain:.3f} "
+          f"ms, torch.matmul on bf16 {lib:.4f} ms", flush=True)
+    return res
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -685,9 +946,13 @@ def main() -> None:
     from repro_torch.core.policy import get_policy, policy_from_dict
     from repro_torch.core.qlinear import (quantize_params, to_device,
                                           variant_counts)
+    from repro_torch.benchmarks.shapes import model_matmuls
+    from repro_torch.core import isa
     from repro_torch.kernels import _build
     from repro_torch.kernels import bfp_matmul as PB
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import prefill_attn as PA
+    from repro_torch.kernels import q8k_quant as PK
     from repro_torch.launch.serve import resolve_policy
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, ServeConfig
@@ -699,6 +964,8 @@ def main() -> None:
     phase_build(_build)
     max_abs = phase_kernels(torch, Q, PB, dev)
     max_abs["prefill_attn"] = phase_attention(torch, PA, dev)
+    max_abs["q8k_quantize"] = phase_q8k(torch, PK, dev)
+    max_abs["q2_k_n50257"] = phase_any_n(torch, Q, PB, dev)
     for policy, attn_impl in ((get_policy("paper_llama_mix"), "auto"),
                               (get_policy("extended_mix"), "fused"),
                               (policy_from_dict(HAND_MIX), "auto")):
@@ -718,7 +985,11 @@ def main() -> None:
         prompts, {"q2_k": 45, "q3_k": 110}, 0)
     timing = phase_timing(torch, qp, cfg, PB, Q, dev, "timing",
                           ("q2_k", "q3_k"), M_PREFILL)
-    del qp
+    integer = {}
+    integer[cfg.name], sched_inputs = phase_integer(
+        torch, cfg, qp, isa, PK, ops, ref, Q, model_matmuls, dev, "integer")
+    q8k_timing = phase_q8k_timing(torch, PK, sched_inputs, dev)
+    del qp, sched_inputs
     torch.cuda.empty_cache()
 
     # slice 2: extended_mix, fused prefill attention, real prompt lengths
@@ -767,6 +1038,27 @@ def main() -> None:
     del qp
     torch.cuda.empty_cache()
 
+    # slice 4: the paper's other two models served at full width, and the
+    # integer datapath over every MatMul of each
+    launches4 = {}
+    for arch, policy, per_forward in PAPER_MODELS:
+        cfg4 = get_arch(arch)
+        qp = pack_full_width(torch, cfg4, T, quantize_params, variant_counts,
+                             get_policy, policy, dev, per_forward)
+        rng = np.random.default_rng(0)
+        prompts4 = [[int(t) for t in rng.integers(0, cfg4.vocab_size,
+                                                  PROMPT_LEN)]
+                    for _ in range(N_REQUESTS)]
+        launches4[arch], _, _ = phase_serve(
+            torch, cfg4, qp, Engine, ServeConfig, PB, PA, T, dev,
+            f"serve4 {arch}", SERVE, prompts4, per_forward, 0)
+        integer[arch], _ = phase_integer(torch, cfg4, qp, isa, PK, ops, ref,
+                                         Q, model_matmuls, dev, "integer")
+        if arch == "gpt2-paper":
+            head_timing = phase_head_timing(torch, qp, Q, PB, dev)
+        del qp
+        torch.cuda.empty_cache()
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -777,7 +1069,8 @@ def main() -> None:
                    "extended_mix_fused": launches2[v],
                    "policy_auto_search": launches_search[v],
                    "policy_auto_searched_serve": launches3s[v],
-                   "policy_auto_hand_mix_serve": launches3l[v]}
+                   "policy_auto_hand_mix_serve": launches3l[v],
+                   **{f"{a}_serve": launches4[a][v] for a in launches4}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -794,6 +1087,9 @@ def main() -> None:
             **{k: t[k] for k in ("prefill", "search") if k in t}})
         if v in timing and v in timing2:    # on both paths' layouts
             kernels[-1]["extended_mix"] = timing2[v]
+        if v == "q2_k":
+            kernels[-1]["gpt2_head_n50257"] = head_timing
+            kernels[-1]["max_abs_err_n50257"] = max_abs["q2_k_n50257"]
     kernels.append({
         "name": "prefill_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/prefill_attn.cu",
@@ -808,6 +1104,24 @@ def main() -> None:
         "library_ms": attn_timing["library_ms"],
         "per": "the launches of one prefill-chunk forward (22 layers)",
         "bytes": attn_timing["bytes"], "flops": attn_timing["flops"]})
+    q8k = q8k_timing["forward"]
+    kernels.append({
+        "name": "q8k_quantize", "route": "cuda",
+        "source": "src/repro_torch/csrc/q8k_quant.cu",
+        "replaces": "src/repro/kernels/q8k_quant.py:41",
+        "launches": sum(r["launches"] for r in integer.values()),
+        "launches_by_path": {f"integer_{a}": r["launches"]
+                             for a, r in integer.items()},
+        "max_abs_err": max_abs["q8k_quantize"],
+        "ms": q8k["ms"], "plain_ms": q8k["plain_ms"],
+        "bound_ms": q8k["bound_ms"], "bound_by": q8k["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes Q8_K (absmax "
+                        "scale, int8 codes and 16-value block sums)",
+        "per": "the launches of one tinyllama-1.1b integer-path forward "
+               "(M=4, one per SCHEDULE)",
+        "bytes": q8k["bytes"], "single_4096x5632": q8k_timing["single"]})
+    print(f"[integer] summary: {json.dumps(integer)}", flush=True)
     print(f"[search] summary: {json.dumps(search)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)

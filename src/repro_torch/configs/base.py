@@ -3,9 +3,11 @@
 Counterpart of ``repro.configs.base``. ``ModelConfig`` mirrors the
 reference field by field (the tests check the mirror), so a config moves
 between the two packages by value. Each arch module registers its full
-config and a ``REDUCED`` same-family config for CPU tests. This slice
-ports the dense llama family and registers ``tinyllama-1.1b``; the other
-architectures join with the slices that port their families.
+config and a ``REDUCED`` same-family config for CPU tests. The port has
+the paper's three evaluation models: ``tinyllama-1.1b`` and
+``mobilellama-1.4b`` (dense llama family) and ``gpt2-paper`` (gpt2
+family); the other architectures join with the slices that port their
+families.
 """
 from __future__ import annotations
 
@@ -105,7 +107,8 @@ def torch_dtype(name: str) -> torch.dtype:
                          f"{sorted(_TORCH_DTYPES)}") from None
 
 
-ARCH_IDS = ("tinyllama-1.1b",)
+# the paper's own evaluation models (Table III/IV)
+ARCH_IDS = ("gpt2-paper", "tinyllama-1.1b", "mobilellama-1.4b")
 
 _MODULE_FOR = {i: i.replace("-", "_").replace(".", "_") for i in ARCH_IDS}
 _REGISTRY: Dict[str, "ArchSpec"] = {}

@@ -42,6 +42,11 @@ class QuantFormat:
     arrays: Tuple[ArraySpec, ...]
     is_weight_format: bool = True
 
+    def nbytes(self, K: int, N: int) -> int:
+        """Bytes of a packed (K, N) tensor in this layout."""
+        return sum((K // a.k_div) * N * getattr(torch, a.dtype).itemsize
+                   for a in self.arrays)
+
 
 # Registry: the same eight weight formats and the Q8_K activation format
 # as the reference (bits/weight bookkeeping is explained there).

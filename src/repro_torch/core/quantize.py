@@ -12,8 +12,9 @@ the reference's ``vmap`` over stacked layers gives.
 The port has all eight weight variants: the paper's Q2_K and Q3_K, the
 extended k-quants Q4_K, Q5_K and Q6_K, the outlier-sidecar Q3_K_O and
 the 32-row block formats Q4_0 and Q8_0 (Q8_0 is also the fallback for a K
-that is a multiple of 32 and not of 256). The Q8_K activation format is
-not ported yet.
+that is a multiple of 32 and not of 256), and the Q8_K activation format
+of the integer datapath (``quantize_q8_k``), the plain version of the
+CUDA kernel ``kernels/q8k_quant.py``.
 """
 from __future__ import annotations
 
@@ -35,10 +36,23 @@ class QTensor:
     A stacked tensor keeps its leading layer axis on every payload while
     ``shape`` stays the per-layer logical (K, N); ``layer(i)`` views one
     layer without copying.
+
+    On the card every payload row starts on a 16-byte boundary, as the
+    CUDA matmul's 16-byte copies need: where N is not a multiple of 16
+    (gpt2's 50257-lane LM head), a payload is laid out once, when the
+    QTensor is made, as the ``[..., :N]`` view of a buffer whose rows are
+    padded to ``lane_stride(N)`` lanes. The logical payload and its bytes
+    stay the reference's.
     """
     variant: str
     shape: Tuple[int, int]
     data: Dict[str, torch.Tensor]
+
+    def __post_init__(self):
+        N = self.shape[1]
+        if N % 16 and any(v.is_cuda and v.stride(-2) % 16
+                          for v in self.data.values()):
+            self.data = {k: _lane_padded(v) for k, v in self.data.items()}
 
     @property
     def nbytes(self) -> int:
@@ -57,6 +71,19 @@ class QTensor:
     def to(self, device) -> "QTensor":
         return QTensor(self.variant, self.shape,
                        {k: v.to(device) for k, v in self.data.items()})
+
+
+def lane_stride(N: int) -> int:
+    """Row stride, in elements, of a payload of N lanes on the card."""
+    return -(-N // 16) * 16
+
+
+def _lane_padded(v: torch.Tensor) -> torch.Tensor:
+    N = v.shape[-1]
+    buf = torch.zeros(*v.shape[:-1], lane_stride(N), dtype=v.dtype,
+                      device=v.device)
+    buf[..., :N] = v
+    return buf[..., :N]
 
 
 def _nearest(x):
@@ -374,6 +401,39 @@ def dequantize_q8_0(t: QTensor, dtype=torch.float32) -> torch.Tensor:
     q = t.data["qs"].to(torch.float32).reshape(*lead, K // 32, 32, N)
     d = t.data["d"].to(torch.float32).unsqueeze(-2)
     return (d * q).reshape(*lead, K, N).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Q8_K activations: x (..., K) -> dict(qs int8, d f32, bsums int16)
+# ---------------------------------------------------------------------------
+
+def quantize_q8_k(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per 256-value super-block of the trailing axis: ``d = amax / 127``
+    (a true division), ``qs = clip(round(x * (1 / d)), -127, 127)`` (a
+    multiply by the safe reciprocal, as the reference writes it) and the
+    16-value block sums of ``qs`` as int16."""
+    K = x.shape[-1]
+    if K % 256:
+        raise ValueError(f"Q8_K needs K % 256 == 0, got K={K}")
+    lead = x.shape[:-1]
+    xf = x.to(torch.float32).reshape(*lead, K // 256, 256)
+    amax = xf.abs().amax(dim=-1)                            # (..., nsb)
+    d = _div(amax, 127.0)
+    q = torch.clamp(_nearest(xf * _safe_inv(d).unsqueeze(-1)), -127, 127)
+    q = q.to(torch.int8)
+    bsums = q.to(torch.int32).reshape(*lead, K // 256, 16, 16).sum(-1)
+    return dict(qs=q.reshape(*lead, K), d=d,
+                bsums=bsums.to(torch.int16).reshape(*lead, K // 16))
+
+
+def dequantize_q8_k(qx: Dict[str, torch.Tensor],
+                    dtype=torch.float32) -> torch.Tensor:
+    qs = qx["qs"]
+    K = qs.shape[-1]
+    lead = qs.shape[:-1]
+    q = qs.to(torch.float32).reshape(*lead, K // 256, 256)
+    x = q * qx["d"].unsqueeze(-1)
+    return x.reshape(*lead, K).to(dtype)
 
 
 # ---------------------------------------------------------------------------

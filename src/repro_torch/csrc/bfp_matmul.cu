@@ -48,7 +48,11 @@
 // shared memory for every tile made the q3_k decode forward about a third
 // slower on the H100 (see PERF.md). N is the minor
 // axis, so a packed row of the tile is 128 contiguous bytes (256 for fp16
-// arrays) and the copies coalesce; a thread then reads its own column's
+// arrays) and the copies coalesce. Any N >= 1 is taken: packed rows lie
+// ld elements apart, ld a multiple of 16 (N itself, or N padded once when
+// the QTensor was laid out on the card), so every row starts on a 16-byte
+// boundary; a chunk that starts below N may read pad lanes, whose columns
+// are never stored; a thread then reads its own column's
 // element of each row (conflict-free) and every x element by broadcast.
 // Each output row keeps its own f32 accumulator and sums its K products in
 // ascending k, so a row's value never depends on M or on BM: batched
@@ -184,14 +188,14 @@ struct Ptrs {
 };
 
 // Copy rows [tile * NROWS, tile * NROWS + NROWS) of a packed (rows, N)
-// array of E-byte elements into dst (NROWS, 128), as 16-byte chunks of the
-// block's 128 columns. Chunks past N (the ragged last block) or past the
-// array's last row (the partial last tile of a 32-row format) are filled
-// with zeros.
+// array of E-byte elements, whose rows lie ld elements apart, into dst
+// (NROWS, 128), as 16-byte chunks of the block's 128 columns. Chunks that
+// start past N (the ragged last block) or past the array's last row (the
+// partial last tile of a 32-row format) are filled with zeros.
 template <int NROWS, int E>
 __device__ __forceinline__ void copy_rows(void* dst, const void* src,
                                           int tile, int total_rows, int N,
-                                          int col0, int tid) {
+                                          int ld, int col0, int tid) {
   constexpr int kChunks = kThreads * E / 16;   // per row
   constexpr int kPerChunk = 16 / E;            // elements per chunk
   const int row0 = tile * NROWS;
@@ -199,7 +203,7 @@ __device__ __forceinline__ void copy_rows(void* dst, const void* src,
     const int r = c / kChunks, cc = (c % kChunks) * kPerChunk;
     const bool ok = row0 + r < total_rows && col0 + cc < N;
     const char* s = static_cast<const char*>(src) +
-                    ((size_t)(row0 + r) * N + col0 + cc) * E;
+                    ((size_t)(row0 + r) * ld + col0 + cc) * E;
     cp_async16(static_cast<char*>(dst) + (r * kThreads + cc) * E,
                ok ? s : src, ok);
   }
@@ -210,27 +214,27 @@ __device__ __forceinline__ void copy_rows(void* dst, const void* src,
 template <int VARIANT, int BM>
 __device__ __forceinline__ void start_tile_copies(
     Tile<VARIANT, BM>& t, int sb, const __nv_bfloat16* x, const Ptrs& p,
-    int M, int K, int N, int m0, int col0) {
+    int M, int K, int N, int ld, int m0, int col0) {
   using F = Fmt<VARIANT>;
   const int tid = threadIdx.x;
   // a packed array with R rows a tile has K * R / 256 rows in all
   const int k32 = K / 32;
-  copy_rows<F::kR0, 1>(&t.a0[0][0], p.a[0], sb, k32 * F::kR0 / 8, N, col0,
-                       tid);
+  copy_rows<F::kR0, 1>(&t.a0[0][0], p.a[0], sb, k32 * F::kR0 / 8, N, ld,
+                       col0, tid);
   if constexpr (F::kR1 > 0)
-    copy_rows<F::kR1, 1>(&t.a1[0][0], p.a[1], sb, k32 * F::kR1 / 8, N, col0,
-                         tid);
+    copy_rows<F::kR1, 1>(&t.a1[0][0], p.a[1], sb, k32 * F::kR1 / 8, N, ld,
+                         col0, tid);
   if constexpr (F::kR2 > 0)
-    copy_rows<F::kR2, 1>(&t.a2[0][0], p.a[2], sb, k32 * F::kR2 / 8, N, col0,
-                         tid);
+    copy_rows<F::kR2, 1>(&t.a2[0][0], p.a[2], sb, k32 * F::kR2 / 8, N, ld,
+                         col0, tid);
   if constexpr (F::kR3 > 0)
-    copy_rows<F::kR3, 1>(&t.a3[0][0], p.a[3], sb, k32 * F::kR3 / 8, N, col0,
-                         tid);
-  copy_rows<F::kH0, 2>(&t.h0[0][0], p.h[0], sb, k32 * F::kH0 / 8, N, col0,
-                       tid);
+    copy_rows<F::kR3, 1>(&t.a3[0][0], p.a[3], sb, k32 * F::kR3 / 8, N, ld,
+                         col0, tid);
+  copy_rows<F::kH0, 2>(&t.h0[0][0], p.h[0], sb, k32 * F::kH0 / 8, N, ld,
+                       col0, tid);
   if constexpr (F::kH1 > 0)
-    copy_rows<F::kH1, 2>(&t.h1[0][0], p.h[1], sb, k32 * F::kH1 / 8, N, col0,
-                         tid);
+    copy_rows<F::kH1, 2>(&t.h1[0][0], p.h[1], sb, k32 * F::kH1 / 8, N, ld,
+                         col0, tid);
   for (int c = tid; c < BM * (kSB / 8); c += kThreads) {  // 8 bf16 a chunk
     const int m = c / (kSB / 8), kk = sb * kSB + (c % (kSB / 8)) * 8;
     const bool ok = m0 + m < M && kk < K;
@@ -379,7 +383,7 @@ __device__ __forceinline__ void blocks16(float (&acc)[BM],
 template <int VARIANT, int BM, typename OT, bool kStatic>
 __global__ void __launch_bounds__(kThreads)
 bfp_matmul_kernel(const __nv_bfloat16* __restrict__ x, const Ptrs p,
-                  OT* __restrict__ out, int M, int K, int N) {
+                  OT* __restrict__ out, int M, int K, int N, int ld) {
   Tile<VARIANT, BM>* tiles;
   if constexpr (kStatic) {
     __shared__ Tile<VARIANT, BM> st[2];
@@ -400,11 +404,11 @@ bfp_matmul_kernel(const __nv_bfloat16* __restrict__ x, const Ptrs p,
   for (int m = 0; m < BM; ++m) acc[m] = 0.f;
 
   const int nsb = (K + kSB - 1) / kSB;
-  start_tile_copies(tiles[0], 0, x, p, M, K, N, m0, col0);
+  start_tile_copies(tiles[0], 0, x, p, M, K, N, ld, m0, col0);
   cp_async_commit();
   for (int sb = 0; sb < nsb; ++sb) {
     if (sb + 1 < nsb) {  // next tile's copies overlap this compute
-      start_tile_copies(tiles[(sb + 1) & 1], sb + 1, x, p, M, K, N, m0,
+      start_tile_copies(tiles[(sb + 1) & 1], sb + 1, x, p, M, K, N, ld, m0,
                         col0);
       cp_async_commit();
       cp_async_wait<1>();
@@ -435,7 +439,7 @@ struct Args {
   const void* x;
   Ptrs p;
   void* out;
-  int M, K, N;
+  int M, K, N, ld;
   cudaStream_t stream;
 };
 
@@ -455,7 +459,7 @@ cudaError_t launch_typed(const Args& a) {
   bfp_matmul_kernel<VARIANT, BM, OT, kStatic>
       <<<grid, kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.p, static_cast<OT*>(a.out),
-      a.M, a.K, a.N);
+      a.M, a.K, a.N, a.ld);
   return cudaGetLastError();
 }
 
@@ -470,17 +474,17 @@ template <int VARIANT>
 cudaError_t launch(int out_dtype, const void* x, const void* a0,
                    const void* a1, const void* a2, const void* a3,
                    const void* h0, const void* h1, void* out, int M, int K,
-                   int N, void* stream) {
-  // 16-byte copies: a packed row of N bytes must split into whole chunks
+                   int N, int ld, void* stream) {
+  // 16-byte copies: every packed row must start on a 16-byte boundary
   constexpr int kSuper = Fmt<VARIANT>::kSuper;
-  if (M < 1 || N < 16 || N % 16 || K < kSuper || K % kSuper)
+  if (M < 1 || N < 1 || ld < N || ld % 16 || K < kSuper || K % kSuper)
     return cudaErrorInvalidValue;
   Args a{x,
          {{static_cast<const uint8_t*>(a0), static_cast<const uint8_t*>(a1),
            static_cast<const uint8_t*>(a2), static_cast<const uint8_t*>(a3)},
           {static_cast<const uint16_t*>(h0),
            static_cast<const uint16_t*>(h1)}},
-         out, M, K, N, static_cast<cudaStream_t>(stream)};
+         out, M, K, N, ld, static_cast<cudaStream_t>(stream)};
   // the row tile only sets how many rows share one pass over the packed
   // weights; every row sums in the same order whichever tile it is in
   if (M <= 4) return launch_bm<VARIANT, 4>(out_dtype, a);
@@ -490,71 +494,72 @@ cudaError_t launch(int out_dtype, const void* x, const void* a0,
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. Pointers are device pointers of
-// contiguous tensors (x in bf16), 16-byte aligned; the stream is the
-// caller's current CUDA stream. The return value is the cudaError_t of
-// the launch (0 on success).
+// Plain C interface, bound with ctypes. Pointers are device pointers,
+// 16-byte aligned: x (M, K) contiguous in bf16, out (M, N) contiguous, and
+// every packed array (rows, N) with its rows ld elements apart (ld >= N, a
+// multiple of 16); the stream is the caller's current CUDA stream. The
+// return value is the cudaError_t of the launch (0 on success).
 extern "C" int bfp_matmul_q2_k(const void* x, const void* qs,
                                const void* scales, const void* d,
                                const void* dmin, void* out, int out_dtype,
-                               int M, int K, int N, void* stream) {
+                               int M, int K, int N, int ld, void* stream) {
   return (int)launch<kQ2>(out_dtype, x, qs, scales, nullptr, nullptr, d,
-                          dmin, out, M, K, N, stream);
+                          dmin, out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q3_k(const void* x, const void* qs,
                                const void* hmask, const void* scales,
                                const void* d, void* out, int out_dtype, int M,
-                               int K, int N, void* stream) {
+                               int K, int N, int ld, void* stream) {
   return (int)launch<kQ3>(out_dtype, x, qs, hmask, scales, nullptr, d,
-                          nullptr, out, M, K, N, stream);
+                          nullptr, out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q3_k_o(const void* x, const void* qs,
                                  const void* hmask, const void* scales,
                                  const void* d, const void* oidx,
                                  const void* ovals, void* out, int out_dtype,
-                                 int M, int K, int N, void* stream) {
+                                 int M, int K, int N, int ld, void* stream) {
   return (int)launch<kQ3O>(out_dtype, x, qs, hmask, scales, oidx, d, ovals,
-                           out, M, K, N, stream);
+                           out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q4_0(const void* x, const void* qs, const void* d,
                                void* out, int out_dtype, int M, int K, int N,
-                               void* stream) {
+                               int ld, void* stream) {
   return (int)launch<kQ40>(out_dtype, x, qs, nullptr, nullptr, nullptr, d,
-                           nullptr, out, M, K, N, stream);
+                           nullptr, out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q4_k(const void* x, const void* qs,
                                const void* scales, const void* mins,
                                const void* d, const void* dmin, void* out,
-                               int out_dtype, int M, int K, int N,
+                               int out_dtype, int M, int K, int N, int ld,
                                void* stream) {
   return (int)launch<kQ4>(out_dtype, x, qs, scales, mins, nullptr, d, dmin,
-                          out, M, K, N, stream);
+                          out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q5_k(const void* x, const void* qs, const void* qh,
                                const void* scales, const void* mins,
                                const void* d, const void* dmin, void* out,
-                               int out_dtype, int M, int K, int N,
+                               int out_dtype, int M, int K, int N, int ld,
                                void* stream) {
   return (int)launch<kQ5>(out_dtype, x, qs, qh, scales, mins, d, dmin, out,
-                          M, K, N, stream);
+                          M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q6_k(const void* x, const void* ql, const void* qh,
                                const void* scales, const void* d, void* out,
-                               int out_dtype, int M, int K, int N,
+                               int out_dtype, int M, int K, int N, int ld,
                                void* stream) {
   return (int)launch<kQ6>(out_dtype, x, ql, qh, scales, nullptr, d, nullptr,
-                          out, M, K, N, stream);
+                          out, M, K, N, ld, stream);
 }
 
 extern "C" int bfp_matmul_q8_0(const void* x, const void* qs, const void* d,
                                void* out, int out_dtype, int M, int K, int N,
-                               void* stream) {
+                               int ld, void* stream) {
   return (int)launch<kQ80>(out_dtype, x, qs, nullptr, nullptr, nullptr, d,
-                           nullptr, out, M, K, N, stream);
+                           nullptr, out, M, K, N, ld, stream);
 }

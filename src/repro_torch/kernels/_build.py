@@ -31,37 +31,40 @@ _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 # stream are c_void_p (a plain int would be cut to 32 bits)
 SIGNATURES = {
     "bfp_matmul": {
-        # x, qs, scales, d, dmin, out, out_dtype, M, K, N, stream
+        # x, qs, scales, d, dmin, out, out_dtype, M, K, N, ld, stream
         "bfp_matmul_q2_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, hmask, scales, d, out, out_dtype, M, K, N, stream
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, hmask, scales, d, out, out_dtype, M, K, N, ld, stream
         "bfp_matmul_q3_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, hmask, scales, d, oidx, ovals, out, out_dtype, M, K, N,
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, hmask, scales, d, oidx, ovals, out, out_dtype, M, K, N, ld,
         # stream
         "bfp_matmul_q3_k_o": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                              _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, d, out, out_dtype, M, K, N, stream
+                              _c_int, _c_int, _c_int, _c_int, _c_int,
+                              _c_void_p],
+        # x, qs, d, out, out_dtype, M, K, N, ld, stream
         "bfp_matmul_q4_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, scales, mins, d, dmin, out, out_dtype, M, K, N, stream
+                            _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, scales, mins, d, dmin, out, out_dtype, M, K, N, ld, stream
         "bfp_matmul_q4_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, qh, scales, mins, d, dmin, out, out_dtype, M, K, N, stream
+                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, qh, scales, mins, d, dmin, out, out_dtype, M, K, N, ld,
+        # stream
         "bfp_matmul_q5_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, ql, qh, scales, d, out, out_dtype, M, K, N, stream
+                            _c_int, _c_int, _c_int, _c_int, _c_int,
+                            _c_void_p],
+        # x, ql, qh, scales, d, out, out_dtype, M, K, N, ld, stream
         "bfp_matmul_q6_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, d, out, out_dtype, M, K, N, stream
-        "bfp_matmul_q8_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                             _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # x, qs, d, out, out_dtype, M, K, N, ld, stream
+        "bfp_matmul_q8_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                            _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
     },
     "prefill_attn": {
         # q, k, v, q_pos, kv_pos, out, q_dtype, kv_dtype, B, C, T, H, KH,
@@ -70,6 +73,11 @@ SIGNATURES = {
                          _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                          _c_int, ctypes.c_float, ctypes.c_float, _c_void_p],
+    },
+    "q8k_quant": {
+        # x, valid (or null), qs, d, bsums, x_dtype, M, K, stream
+        "q8k_quantize": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                         _c_void_p, _c_int, _c_int, _c_int, _c_void_p],
     },
 }
 

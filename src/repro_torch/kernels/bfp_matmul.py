@@ -12,6 +12,10 @@ f32, round to bf16 and back, one f32 matmul per row, one cast. CPU tensors
 take it (the CPU tests use it); on the card it is only the yardstick the
 kernel is checked against.
 
+The kernel takes any N: on the card each payload's rows start on 16-byte
+boundaries (``core.quantize.QTensor`` pads N to ``lane_stride(N)`` lanes
+once, when the tensor is made), and the kernel gets that row stride.
+
 ``launches`` counts kernel launches per variant. The wrapper adds one
 where it launches and nowhere else, so a run can show that the main path
 went through the kernel.
@@ -98,21 +102,24 @@ def _check(x: torch.Tensor, t: QTensor, compute_dtype, out_dtype):
         raise ValueError(f"x has K={K}, weight has K={Kt} (must match and "
                          f"be a multiple of {t.variant}'s {sb}-row "
                          "super-block)")
-    if N % 16:
-        raise ValueError(f"the kernel copies 16-byte chunks of packed rows "
-                         f"and needs N % 16 == 0, got N={N}")
+    # the kernel copies 16-byte chunks of packed rows: every payload's rows
+    # lie ld elements apart, ld a multiple of 16 (a QTensor made on the
+    # card is laid out so, core/quantize.py)
+    ld = t.data[_PAYLOADS[t.variant][0][0]].stride(0)
     for name, dtype, kdiv in _PAYLOADS[t.variant]:
         a = t.data[name]
         if a.shape != (K // kdiv, N) or a.dtype != dtype:
             raise ValueError(
                 f"{t.variant} payload {name!r} is {tuple(a.shape)} "
                 f"{a.dtype}, the kernel takes ({K // kdiv}, {N}) {dtype}")
-        if a.device != x.device or not a.is_contiguous():
-            raise ValueError(f"payload {name!r} must be contiguous on "
-                             f"{x.device}")
-        if a.data_ptr() % 16:
-            raise ValueError(f"payload {name!r} is not 16-byte aligned")
-    return M, K, N
+        if a.device != x.device:
+            raise ValueError(f"payload {name!r} must be on {x.device}")
+        if a.stride() != (ld, 1) or ld % 16 or a.data_ptr() % 16:
+            raise ValueError(
+                f"payload {name!r} has strides {a.stride()}: its rows must "
+                f"start on 16-byte boundaries, ld={ld} elements apart "
+                "(a multiple of 16) like every payload of the tensor")
+    return M, K, N, ld
 
 
 def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
@@ -121,7 +128,7 @@ def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
     """Launch the CUDA kernel on x (M, K) against packed t (K, N) on the
     current stream. Raises on anything the kernel does not take."""
     out_dtype = out_dtype or x.dtype
-    M, K, N = _check(x, t, compute_dtype, out_dtype)
+    M, K, N, ld = _check(x, t, compute_dtype, out_dtype)
     lib = _build.load("bfp_matmul")
     # the kernel reads bf16(x): the cast is the compute-dtype cast of the
     # reference, done once here (free for the bf16 activations of a model)
@@ -133,7 +140,7 @@ def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
     ptrs = [t.data[name].data_ptr() for name, _, _ in _PAYLOADS[t.variant]]
     fn = getattr(lib, f"bfp_matmul_{t.variant}")
     err = fn(xb.data_ptr(), *ptrs, out.data_ptr(), _OUT_CODE[out_dtype],
-             M, K, N, stream)
+             M, K, N, ld, stream)
     if err != 0:
         raise RuntimeError(f"bfp_matmul_{t.variant} launch failed with "
                            f"cudaError_t {err} (M={M}, K={K}, N={N})")

@@ -1,10 +1,11 @@
 """Model building blocks: norms, rotary embeddings, attention, MLPs.
 
-Counterpart of ``repro.models.layers`` for the dense llama family. Plain
-functions on tensors; any weight matrix may be a packed ``QTensor``, in
-which case the matmul goes to ``kernels.ops.bfp_matmul`` (the CUDA kernel
-on the card). Shapes and layouts are the reference's:
-q ``(B, S, H, D)``, caches ``(B, T, KH, D)``, positions ``(B, S)``.
+Counterpart of ``repro.models.layers`` for the dense llama family and
+gpt2 (LayerNorm, GELU MLP). Plain functions on tensors; any weight
+matrix may be a packed ``QTensor``, in which case the matmul goes to
+``kernels.ops.bfp_matmul`` (the CUDA kernel on the card). Shapes and
+layouts are the reference's: q ``(B, S, H, D)``, caches
+``(B, T, KH, D)``, positions ``(B, S)``.
 
 The matmul inputs feed ``core.calibrate.tap`` at the reference's sites
 (inert outside ``calibrate.collecting``). Attention is the reference's
@@ -43,10 +44,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (y * w.to(torch.float32)).to(dt)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+
+
 def norm(x, p: Dict, kind: str, eps: float):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rmsnorm(x, p["w"], eps)
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"], eps)
+    return layernorm(x, p["w"], p["b"], eps)
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +189,18 @@ def swiglu_mlp(x, p: Dict, *, impl="auto"):
     h = Fn.silu(g) * u
     CAL.tap("mlp/w_down", h)
     return dense(h, p["w_down"], impl=impl)
+
+
+def gelu_mlp(x, p: Dict, *, impl="auto"):
+    """gpt2's MLP: c_fc, + b_fc, tanh-approximate GELU, c_proj, + b_proj
+    (the reference's single-device branch)."""
+    CAL.tap("mlp/c_fc", x)
+    h = dense(x, p["c_fc"], impl=impl)
+    if "b_fc" in p:
+        h = h + p["b_fc"].to(h.dtype)
+    h = Fn.gelu(h, approximate="tanh")
+    CAL.tap("mlp/c_proj", h)
+    o = dense(h, p["c_proj"], impl=impl)
+    if "b_proj" in p:
+        o = o + p["b_proj"].to(o.dtype)
+    return o

@@ -1,10 +1,12 @@
 """Dense transformer: init, chunked prefill and decode against a KV ring.
 
 Counterpart of ``repro.models.transformer`` for the dense llama family
-(RMSNorm, split-half RoPE, GQA, SwiGLU). Parameters are a plain dict tree
-with the reference's paths and stacked layer axis; a weight may be a packed
-``QTensor`` whose payloads carry that axis too. The reference's layer
-``scan`` is a Python loop over layers that indexes the stacked tensors.
+(RMSNorm, split-half RoPE, GQA, SwiGLU) and the gpt2 family (LayerNorm,
+learned positions, fused qkv with biases, GELU MLP). Parameters are a
+plain dict tree with the reference's paths and stacked layer axis; a
+weight may be a packed ``QTensor`` whose payloads carry that axis too.
+The reference's layer ``scan`` is a Python loop over layers that indexes
+the stacked tensors.
 
 ``forward_seq`` is the cache-free full-sequence forward that calibration
 and the quality metrics run. Caches: ``k``/``v`` of shape
@@ -27,15 +29,16 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
-_KV_FAMILIES = ("dense",)
+_KV_FAMILIES = ("dense", "gpt2")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """This slice has the dense llama family as tinyllama uses it."""
+    """The port has the dense llama family and gpt2, as the paper's three
+    models use them."""
     unported = [f for f, on in (
         (f"family {cfg.family!r}", cfg.family not in _KV_FAMILIES),
-        ("fused_qkv", cfg.fused_qkv), (f"act {cfg.act!r}", cfg.act != "swiglu"),
-        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb != "rope"),
+        (f"act {cfg.act!r}", cfg.act not in ("swiglu", "gelu")),
+        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned")),
         ("qk_norm", cfg.qk_norm), ("tie_embeddings", cfg.tie_embeddings),
         ("kv_cache_quant", cfg.kv_cache_quant)) if on]
     if unported:
@@ -63,25 +66,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                         device=dev)
         return (w / math.sqrt(fan_in)).to(dtype)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     def norm_p(width, stacked=True):
         shape = (Lc, width) if stacked else (width,)
-        return {"w": torch.ones(shape, dtype=dtype, device=dev)}
+        out = {"w": torch.ones(shape, dtype=dtype, device=dev)}
+        if cfg.norm_type == "layernorm":
+            out["b"] = zeros(shape)
+        return out
 
     p: Dict[str, Any] = {"wte": dense_init((V, d), d)}
-    attn = {
-        "wq": dense_init((Lc, d, H * Dh), d),
-        "wk": dense_init((Lc, d, KH * Dh), d),
-        "wv": dense_init((Lc, d, KH * Dh), d),
-        "wo": dense_init((Lc, H * Dh, d), H * Dh),
-    }
-    p["layers"] = {
-        "ln1": norm_p(d), "ln2": norm_p(d), "attn": attn,
-        "mlp": {
-            "w_gate": dense_init((Lc, d, f), d),
-            "w_up": dense_init((Lc, d, f), d),
-            "w_down": dense_init((Lc, f, d), f),
-        },
-    }
+    if cfg.pos_emb == "learned":
+        p["wpe"] = dense_init((cfg.max_position, d), 1.0) * 0.02
+    if cfg.fused_qkv:
+        attn = {"c_attn": dense_init((Lc, d, 3 * d), d),
+                "b_attn": zeros((Lc, 3 * d)),
+                "c_proj": dense_init((Lc, d, d), d),
+                "b_proj": zeros((Lc, d))}
+    else:
+        attn = {"wq": dense_init((Lc, d, H * Dh), d),
+                "wk": dense_init((Lc, d, KH * Dh), d),
+                "wv": dense_init((Lc, d, KH * Dh), d),
+                "wo": dense_init((Lc, H * Dh, d), H * Dh)}
+    if cfg.act == "gelu":
+        mlp = {"c_fc": dense_init((Lc, d, f), d), "b_fc": zeros((Lc, f)),
+               "c_proj": dense_init((Lc, f, d), f), "b_proj": zeros((Lc, d))}
+    else:
+        mlp = {"w_gate": dense_init((Lc, d, f), d),
+               "w_up": dense_init((Lc, d, f), d),
+               "w_down": dense_init((Lc, f, d), f)}
+    p["layers"] = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn,
+                   "mlp": mlp}
     p["ln_f"] = norm_p(d, stacked=False)
     p["lm_head"] = dense_init((d, V), d)
     return p
@@ -100,9 +116,29 @@ def _layer(tree, i: int):
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, positions):
     # the embedding is never packed (qlinear never quantizes ``wte``)
-    return params["wte"][tokens].to(torch_dtype(cfg.dtype))
+    h = params["wte"][tokens].to(torch_dtype(cfg.dtype))
+    if cfg.pos_emb == "learned":
+        # JAX clamps an out-of-range gather index, and the reference reads
+        # past max_position (the padding columns of a prefill chunk, which
+        # the engine pads to whole chunks); torch would raise, so clamp
+        pos = positions.clamp(0, cfg.max_position - 1)
+        h = h + params["wpe"][pos].to(h.dtype)
+    return h
+
+
+def _rope(cfg: ModelConfig, positions):
+    """cos/sin tables for rotary archs, None for learned positions."""
+    if cfg.pos_emb != "rope":
+        return None
+    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+
+def _mlp(m_in, lp, cfg: ModelConfig, impl):
+    if cfg.act == "gelu":
+        return L.gelu_mlp(m_in, lp["mlp"], impl=impl)
+    return L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
 
 
 def _logits(params, cfg: ModelConfig, h, impl="auto"):
@@ -114,18 +150,37 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
     B, S, _ = a_in.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     attn = lp["attn"]
-    CAL.tap(("attn/wq", "attn/wk", "attn/wv"), a_in)
-    q = L.dense(a_in, attn["wq"], impl=impl).reshape(B, S, H, Dh)
-    k = L.dense(a_in, attn["wk"], impl=impl).reshape(B, S, KH, Dh)
-    v = L.dense(a_in, attn["wv"], impl=impl).reshape(B, S, KH, Dh)
-    return q, k, v
+    if cfg.fused_qkv:
+        CAL.tap("attn/c_attn", a_in)
+        qkv = L.dense(a_in, attn["c_attn"], impl=impl)
+        qkv = qkv + attn["b_attn"].to(qkv.dtype)
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+    else:
+        CAL.tap(("attn/wq", "attn/wk", "attn/wv"), a_in)
+        q = L.dense(a_in, attn["wq"], impl=impl)
+        k = L.dense(a_in, attn["wk"], impl=impl)
+        v = L.dense(a_in, attn["wv"], impl=impl)
+    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KH, Dh),
+            v.reshape(B, S, KH, Dh))
 
 
 def _attn_out(o, lp, cfg, impl):
     B, S = o.shape[:2]
     o = o.reshape(B, S, o.shape[2] * o.shape[3])
+    attn = lp["attn"]
+    if cfg.fused_qkv:
+        CAL.tap("attn/c_proj", o)
+        out = L.dense(o, attn["c_proj"], impl=impl)
+        return out + attn["b_proj"].to(out.dtype)
     CAL.tap("attn/wo", o)
-    return L.dense(o, lp["attn"]["wo"], impl=impl)
+    return L.dense(o, attn["wo"], impl=impl)
+
+
+def _apply_rope(q, k, cos_sin):
+    if cos_sin is None:
+        return q, k
+    cos, sin = cos_sin
+    return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +241,7 @@ def _attn_layer_decode(h, lp, kc, vc, slot_pos, position, slot, cfg,
     B = h.shape[0]
     a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
     q, k, v = _qkv(a_in, lp, cfg, impl)
-    cos, sin = cos_sin
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
+    q, k = _apply_rope(q, k, cos_sin)
     bidx = torch.arange(B, device=h.device)
     k_new, v_new = k[:, 0].to(kc.dtype), v[:, 0].to(vc.dtype)
     if live is not None:
@@ -202,7 +255,7 @@ def _attn_layer_decode(h, lp, kc, vc, slot_pos, position, slot, cfg,
                            softcap=cfg.attn_logit_softcap)
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-    return h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+    return h + _mlp(m_in, lp, cfg, impl)
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
@@ -217,8 +270,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     _check_family(cfg)
     impl = cfg.kernel_impl
     B = tokens.shape[0]
-    h = _embed(params, cfg, tokens)[:, None, :]             # (B,1,d)
-    cos_sin = L.rope_cos_sin(position[:, None], cfg.d_head, cfg.rope_theta)
+    h = _embed(params, cfg, tokens, position)[:, None, :]   # (B,1,d)
+    cos_sin = _rope(cfg, position[:, None])
 
     T = cache["k"].shape[2]
     slot = position % T
@@ -283,8 +336,8 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
     T = cache["k"].shape[2]
     if C > T:
         raise ValueError(f"chunk of {C} columns exceeds the ring ({T})")
-    h = _embed(params, cfg, tokens)
-    cos, sin = L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    h = _embed(params, cfg, tokens, positions)
+    cos_sin = _rope(cfg, positions)
 
     # a row's C positions are distinct mod T (C <= T), so each column owns
     # its ring slot: invalid columns write back what the slot held, which
@@ -298,8 +351,7 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
         kc, vc = cache["k"][li], cache["v"][li]
         a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
         q, k, v = _qkv(a_in, lp, cfg, impl)
-        q = L.apply_rope(q, cos, sin)
-        k = L.apply_rope(k, cos, sin)
+        q, k = _apply_rope(q, k, cos_sin)
         k_chunk = k.to(kc.dtype)            # ring-dtype rounding, so results
         v_chunk = v.to(vc.dtype)            # do not depend on chunk bounds
         o = L.prefill_attention(q, kc, vc, old_pos, k_chunk, v_chunk,
@@ -312,7 +364,7 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
         vc[bidx, slot] = torch.where(vmask, v_chunk, vc[bidx, slot])
         h = h + _attn_out(o, lp, cfg, impl)
         m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-        h = h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+        h = h + _mlp(m_in, lp, cfg, impl)
     cache["pos"][bidx, slot] = torch.where(
         valid, positions.to(torch.int32), old_pos[bidx, slot])
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
@@ -350,13 +402,11 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
 def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
     a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
     q, k, v = _qkv(a_in, lp, cfg, impl)
-    cos, sin = cos_sin
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
+    q, k = _apply_rope(q, k, cos_sin)
     o = _seq_attention(q, k, v, cfg, h.shape[1])
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-    return h + L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+    return h + _mlp(m_in, lp, cfg, impl)
 
 
 def forward_seq(params, cfg: ModelConfig, *, tokens):
@@ -368,8 +418,8 @@ def forward_seq(params, cfg: ModelConfig, *, tokens):
     impl = cfg.kernel_impl
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    h = _embed(params, cfg, tokens)
-    cos_sin = L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    h = _embed(params, cfg, tokens, positions)
+    cos_sin = _rope(cfg, positions)
     for li in range(cfg.n_layers):
         h = _attn_layer_seq(h, _layer(params["layers"], li), cfg, cos_sin,
                             impl)

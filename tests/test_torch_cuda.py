@@ -14,6 +14,8 @@ Tolerances, relative to the output's max magnitude:
     tolerance for its kernel against the naive path (f32 accumulation
     order and the 32-key tiles of the kernel against the plain version's
     256). bf16 output: 2**-7, one bf16 ulp at the max.
+  * Q8_K quantization: byte for byte, against the plain version on the
+    card and on the CPU (every step is correctly rounded on both).
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro_torch.core import quantize as PQ
 from repro_torch.kernels import bfp_matmul as PB
 from repro_torch.kernels import ops as PO
 from repro_torch.kernels import prefill_attn as PA
+from repro_torch.kernels import q8k_quant as PK
 
 torch.set_num_threads(2)
 
@@ -151,8 +154,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                       impl="cuda")
     with pytest.raises(ValueError, match="must be contiguous"):
         PB.bfp_matmul_cuda(torch.zeros(256, 2, device=cuda_device).T, t)
+    # N = 200 is laid out lane-padded on the card; a payload put back
+    # contiguous has rows that do not start on 16-byte boundaries
     t8 = PQ.quantize("q2_k", torch.randn(256, 200, device=cuda_device))
-    with pytest.raises(ValueError, match="N % 16"):
+    t8.data["qs"] = t8.data["qs"].contiguous()
+    with pytest.raises(ValueError, match="16-byte boundaries"):
         PO.bfp_matmul(torch.zeros(2, 256, device=cuda_device), t8,
                       impl="cuda")
     t0 = PQ.quantize("q4_0", torch.randn(288, 64, device=cuda_device))
@@ -223,3 +229,123 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         PA.prefill_attn_cuda(q.half(), k, v, qp, kp)
     with pytest.raises(ValueError, match="CUDA tensor"):
         PA.prefill_attn_cuda(q.cpu(), k.cpu(), v.cpu(), qp.cpu(), kp.cpu())
+
+
+# -- any N in the dequant-matmul --------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PB.VARIANTS)
+def test_kernel_takes_any_n(cuda_device, variant):
+    """N = 8 (mod 16), odd N and N = 1: a QTensor made on the card lays its
+    payloads out lane-padded once, and the kernel reads them through the
+    row stride; the output is (M, N), rows independent of M."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    for K, N in ((256, 200), (512, 77), (256, 1), (768, 136)):
+        t = PQ.quantize(variant, torch.randn(K, N, generator=g,
+                                             device=cuda_device) / K ** 0.5)
+        for v in t.data.values():
+            assert v.shape[-1] == N and v.stride(0) == PQ.lane_stride(N)
+        x = torch.randn(33, K, generator=g, device=cuda_device).bfloat16()
+        y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+        ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert y.shape == (33, N)
+        assert _rel_err(y, ref) <= TOL_F32, (K, N)
+        assert torch.equal(PB.bfp_matmul_cuda(x[:1], t)[0],
+                           PB.bfp_matmul_cuda(x, t)[0])
+
+
+@pytest.mark.cuda
+def test_kernel_gpt2_head_without_a_copy(cuda_device):
+    """gpt2-paper's LM head, (768, 50257) in q2_k, at decode M: matches the
+    plain version, and a call allocates only its output (the padded
+    layout is made once, with the QTensor, never per call)."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    K, N = 768, 50257
+    t = PQ.quantize("q2_k", torch.randn(K, N, generator=g,
+                                        device=cuda_device) / K ** 0.5)
+    x = torch.randn(4, K, generator=g, device=cuda_device).bfloat16()
+    y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+    ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+    assert _rel_err(y, ref) <= TOL_F32
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= y.numel() * 4 + 512
+
+
+# -- Q8_K activation quantization ------------------------------------------
+
+def _bytes_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8k_kernel_equals_plain_byte_for_byte(cuda_device, dtype):
+    """The integer path's shapes (M of 1 to 512, the paper models' K), with
+    zero super-blocks and with a row mask that masks rows, against the
+    plain version on the card and on the CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    PK.reset_launches()
+    calls = 0
+    for M in (1, 4, 33, 512):
+        for K in (768, 2048, 3072, 5632):
+            x = (torch.randn(M, K, generator=g, device=cuda_device)
+                 * 3).to(dtype)
+            x[0, :256] = 0                      # a zero super-block
+            x[-1, -512:] = 0
+            mask = torch.rand(M, generator=g, device=cuda_device) < 0.7
+            mask[0] = False
+            for valid in (None, mask):
+                got = PK.q8k_quantize_cuda(x, valid)
+                calls += 1
+                want = PK.q8k_quantize_plain(x, valid)
+                cpu = PK.q8k_quantize_plain(
+                    x.cpu(), None if valid is None else valid.cpu())
+                for k in ("qs", "d", "bsums"):
+                    assert got[k].dtype == want[k].dtype
+                    assert _bytes_equal(got[k], want[k]), (M, K, k)
+                    assert _bytes_equal(got[k].cpu(), cpu[k]), (M, K, k)
+                if valid is not None:
+                    for k in ("qs", "d", "bsums"):
+                        assert not got[k][~valid].any(), k
+    assert PK.launches["q8k_quantize"] == calls
+
+
+@pytest.mark.cuda
+def test_q8k_ops_and_isa_launch_the_kernel(cuda_device):
+    """ops.q8k_quantize on a CUDA tensor launches the kernel (leading dims
+    flattened), and the ISA simulator launches it once per SCHEDULE."""
+    from repro_torch.core import isa
+    from repro_torch.kernels import ref as PR
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    x = torch.randn(2, 3, 512, generator=g, device=cuda_device)
+    PK.reset_launches()
+    q = PO.q8k_quantize(x)
+    assert PK.launches["q8k_quantize"] == 1 and q["qs"].shape == (2, 3, 512)
+    w = PQ.quantize("q3_k", torch.randn(512, 600, generator=g,
+                                        device=cuda_device) * 0.2)
+    x2 = torch.randn(4, 512, generator=g, device=cuda_device)
+    PK.reset_launches()
+    out, stats = isa.run_matmul(x2, w)
+    assert PK.launches["q8k_quantize"] == stats.schedules == 3
+    expect = PR.matmul_q8k_ref(PO.q8k_quantize(x2), w)
+    assert _rel_err(out, expect) <= TOL_F32
+
+
+@pytest.mark.cuda
+def test_q8k_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(2, 512, device=cuda_device)
+    with pytest.raises(ValueError, match="K % 256"):
+        PK.q8k_quantize_cuda(x[:, :300].contiguous())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        PK.q8k_quantize_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.q8k_quantize_cuda(torch.zeros(512, 2, device=cuda_device).T)
+    with pytest.raises(ValueError, match="valid"):
+        PK.q8k_quantize_cuda(x, torch.ones(3, dtype=torch.bool,
+                                           device=cuda_device))

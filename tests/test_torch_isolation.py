@@ -51,7 +51,9 @@ def test_engine_imports_without_jax():
             "sys.modules['repro'] = None; "
             "import repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.launch.policy_search, repro_torch.core.calibrate, "
-            "repro_torch.core.quality, repro_torch.bridge; print('ok')")
+            "repro_torch.core.quality, repro_torch.bridge, "
+            "repro_torch.core.isa, repro_torch.launch.quickstart, "
+            "repro_torch.benchmarks.shapes; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
