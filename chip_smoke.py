@@ -16,12 +16,14 @@ Phases, each of which exits nonzero on failure:
    prefill M (``prefill_batch * prefill_chunk`` = 64), Q3_K also at
    slice-2 prefill M (512); Q4_K/Q6_K at wv's
    (2048, 256), w_down's (5632, 2048) and the LM head's (2048, 32000) at
-   decode M and slice-2 prefill M (512); f32 and bf16 outputs; row 0 of
-   an M=33 product equals the M=1 product bit for bit. The fused prefill
-   attention at the serving shape (B=4, C=128, H=32, KH=4, D=64,
-   T=1024+128) with empty (-1) ring slots, at D=128, with a sliding window
-   and with a softcap, f32 and bf16, on visible rows; batch row 0 of a B=4
-   call equals the B=1 call bit for bit. Q3_K_O/Q4_0/Q5_K/Q8_0 at all
+   decode M and slice-2 prefill M (512); f32 and bf16 outputs; for every
+   variant, rows of an M=512 and an M=128 product equal the M=1 product
+   bit for bit (at (2048, 256) and (2048, 5632), whose K the kernel
+   splits; at the second, one block runs a tile's splits at M=512). The
+   fused prefill attention at the serving shape (B=4, C=128, H=32, KH=4,
+   D=64, T=1024+128) with empty (-1) ring slots, at D=128, with a sliding
+   window and with a softcap, f32 and bf16, on visible rows; batch row 0
+   of a B=4 call equals the B=1 call bit for bit. Q3_K_O/Q4_0/Q5_K/Q8_0 at all
    five shapes at decode M and the search's M (128), Q4_0/Q8_0 also at
    (2080, 256) (K a multiple of 32, not of 256), and every variant's
    packing on the card against the CPU's, byte for byte (Q3_K_O on
@@ -37,7 +39,9 @@ Phases, each of which exits nonzero on failure:
    equal the engine's own generate_reference.
 4. timing, slice 1: the matmul kernel's time for one forward's launches of
    each variant, at decode and prefill M, beside its bound, the plain
-   version's time and torch.matmul on pre-dequantized bf16 weights.
+   version's time and torch.matmul on pre-dequantized bf16 weights; each
+   line gives the kernel's share of its bound and its factor over
+   torch.matmul.
 5. serve, slice 2: the same weights packed with extended_mix and
    ``attn_impl="fused"``; 8 requests with prompts of 256 to 512 tokens
    (seeded), 32 new tokens, 4 slots, 128-token prefill chunks, a
@@ -165,6 +169,10 @@ Q8K_KS = (768, 2048, 3072, 5632)
 Q8K_BIG = (4096, 5632)
 Q8K_BYTES_PER_VALUE = 4 + 1 + 4 / 256 + 2 / 16   # f32 in; qs, d, bsums out
 GPT2_HEAD = (768, 50257)
+# rows held against the M=1 product: places in an 8-token group, in a
+# 64-token tile and past the first tile
+ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
+ROW_SHAPES = ((2048, 256), (2048, 5632))
 # launches per timed group: the kernel's wrapper launches one kernel a
 # call, the plain version about twenty small ones
 Q8K_GROUP, Q8K_GROUP_PLAIN = 256, 16
@@ -231,17 +239,37 @@ def phase_kernels(torch, Q, PB, dev):
                 check(bool(torch.isfinite(y).all()), "non-finite output")
                 check(e32 <= TOL_F32, f"{variant} {M}x{K}x{N} f32 error")
                 check(e16 <= TOL_BF16, f"{variant} {M}x{K}x{N} bf16 error")
-        x = torch.randn(33, 2048, generator=g, device=dev).bfloat16()
-        t = Q.quantize(variant, torch.randn(2048, 256, generator=g,
-                                            device=dev))
-        row_ok = torch.equal(PB.bfp_matmul_cuda(x, t)[0],
-                             PB.bfp_matmul_cuda(x[:1], t)[0])
-        print(f"[kernels] {variant} row 0 of M=33 == M=1 bit for bit: "
+        row_ok = rows_independent_of_m(torch, Q, PB, dev, g, variant)
+        print(f"[kernels] {variant} rows {ROWS_CHECKED} of M=512 and M=128 "
+              f"== M=1 bit for bit ((K, N) in {ROW_SHAPES}, K split in "
+              f"{[PB.k_splits(*s) for s in ROW_SHAPES]}; f32 and bf16 out): "
               f"{row_ok}", flush=True)
         check(row_ok, f"{variant}: a row depends on M")
         max_abs[variant] = worst
     phase_packing(torch, Q, PB, dev, g)
     return max_abs
+
+
+def rows_independent_of_m(torch, Q, PB, dev, g, variant) -> bool:
+    """Rows of an M=512 and an M=128 product against the M=1 product of
+    each row, bit for bit, at places in an 8-token group and a 64-token
+    tile, on two shapes whose K is split: wk's (2048, 256), where the
+    partials go through the workspace at every M, and w_up's (2048, 5632),
+    where one block runs a tile's splits in turn at M=512."""
+    for K, N in ROW_SHAPES:
+        x = torch.randn(512, K, generator=g, device=dev).bfloat16()
+        t = Q.quantize(variant, torch.randn(K, N, generator=g, device=dev)
+                       / K ** 0.5)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            full = {M: PB.bfp_matmul_cuda(x[:M], t, out_dtype=out_dtype)
+                    for M in (512, 128)}
+            for m in ROWS_CHECKED:
+                one = PB.bfp_matmul_cuda(x[m:m + 1], t,
+                                         out_dtype=out_dtype)[0]
+                if not all(torch.equal(f[m], one) for M, f in full.items()
+                           if m < M):
+                    return False
+    return True
 
 
 def tie_free_weights(torch, L, K, N, dev, g):
@@ -551,9 +579,10 @@ def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
             print(f"[{tag}] {variant} {phase} forward ({len(jobs)} "
                   f"launches, M={M}): kernel {kern:.3f} ms, bound "
                   f"{res[phase]['bound_ms']:.3f} ms ({res[phase]['bound_by']}"
-                  f", {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-                  f"plain {plain:.3f} ms, torch.matmul on bf16 {lib:.3f} ms",
-                  flush=True)
+                  f", {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; kernel "
+                  f"at {res[phase]['bound_ms'] / kern:.1%} of it), plain "
+                  f"{plain:.3f} ms, torch.matmul on bf16 {lib:.3f} ms "
+                  f"(kernel / torch.matmul {kern / lib:.2f}x)", flush=True)
         del dense
         out[variant] = res
     return out
@@ -926,8 +955,10 @@ def phase_head_timing(torch, qp, Q, PB, dev):
                launches_per_forward=1, bytes=nbytes, flops=flops)
     print(f"[timing4] q2_k gpt2-paper LM head ({K}, {N}) at M={M_DECODE}: "
           f"kernel {kern:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}, {nbytes / 1e6:.2f} MB), plain {plain:.3f} "
-          f"ms, torch.matmul on bf16 {lib:.4f} ms", flush=True)
+          f"({res['bound_by']}, {nbytes / 1e6:.2f} MB; kernel at "
+          f"{res['bound_ms'] / kern:.1%} of it), plain {plain:.3f} ms, "
+          f"torch.matmul on bf16 {lib:.4f} ms (kernel / torch.matmul "
+          f"{kern / lib:.2f}x)", flush=True)
     return res
 
 

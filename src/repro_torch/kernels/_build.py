@@ -31,40 +31,17 @@ _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 # stream are c_void_p (a plain int would be cut to 32 bits)
 SIGNATURES = {
     "bfp_matmul": {
-        # x, qs, scales, d, dmin, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q2_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, hmask, scales, d, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q3_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, hmask, scales, d, oidx, ovals, out, out_dtype, M, K, N, ld,
-        # stream
-        "bfp_matmul_q3_k_o": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                              _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                              _c_int, _c_int, _c_int, _c_int, _c_int,
-                              _c_void_p],
-        # x, qs, d, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q4_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, scales, mins, d, dmin, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q4_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_void_p, _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, qh, scales, mins, d, dmin, out, out_dtype, M, K, N, ld,
-        # stream
-        "bfp_matmul_q5_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_int, _c_int, _c_int, _c_int, _c_int,
-                            _c_void_p],
-        # x, ql, qh, scales, d, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q6_k": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_void_p, _c_void_p, _c_int,
-                            _c_int, _c_int, _c_int, _c_int, _c_void_p],
-        # x, qs, d, out, out_dtype, M, K, N, ld, stream
-        "bfp_matmul_q8_0": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                            _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        # every variant: x, its payloads in _PAYLOADS order, out, out_dtype,
+        # ws (f32 (S, M, N) or null), splits, M, K, N, ld, stream
+        f"bfp_matmul_{variant}": [_c_void_p] * (1 + n_payloads) + [
+            _c_void_p, _c_int, _c_void_p, _c_int,
+            _c_int, _c_int, _c_int, _c_int, _c_void_p]
+        for variant, n_payloads in (("q2_k", 4), ("q3_k", 4), ("q3_k_o", 6),
+                                    ("q4_0", 2), ("q4_k", 5), ("q5_k", 6),
+                                    ("q6_k", 4), ("q8_0", 2))
+    } | {
+        # M, N, splits: 1 if the launch writes split partials to ws
+        "bfp_matmul_spreads_splits": [_c_int, _c_int, _c_int],
     },
     "prefill_attn": {
         # q, k, v, q_pos, kv_pos, out, q_dtype, kv_dtype, B, C, T, H, KH,

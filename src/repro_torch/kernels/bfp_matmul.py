@@ -3,9 +3,13 @@
 Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas``). The
 kernel (``csrc/bfp_matmul.cu``, CUDA C++ for sm_90a) reads a
 reference-packed ``QTensor`` of any of the eight weight variants as it
-is, dequantizes each tile on chip and accumulates in f32; the
-dequantized weight never reaches device memory. Its source note gives
-its bound and design.
+is, dequantizes each tile on chip into the tensor cores' fragments and
+accumulates in f32; the dequantized weight never reaches device memory.
+Its source note gives its bound and design.
+
+The kernel splits K into ``k_splits(K, N)`` parts, a function of the
+weight's shape alone, so that a row's value never depends on M. With more
+than one part the wrapper hands it an f32 workspace of (S, M, N).
 
 ``bfp_matmul_plain`` is the same function in plain PyTorch: dequantize to
 f32, round to bf16 and back, one f32 matmul per row, one cast. CPU tensors
@@ -56,6 +60,26 @@ _PAYLOADS = {
              ("scales", torch.int8, 16), ("d", torch.float16, 256)),
     "q8_0": (("qs", torch.int8, 1), ("d", torch.float16, 32)),
 }
+
+
+# the kernel's column tile (kBN in csrc/bfp_matmul.cu) and the card's SM
+# count (NVIDIA H100 SXM), which set the split along K
+BLOCK_N = 128
+SMS = 132
+SUPER_BLOCK = 256
+
+
+def k_splits(K: int, N: int) -> int:
+    """How many parts the kernel splits K into, from the weight's shape
+    alone (never from M): the least divisor S of the 256-row tiles along K
+    for which column tiles times S fill the card's SMs at decode, else
+    every tile its own part. N = 256, K = 2048: 2 column tiles, S = 8."""
+    tiles = -(-K // SUPER_BLOCK)
+    cols = -(-N // BLOCK_N)
+    for s in range(1, tiles + 1):
+        if tiles % s == 0 and cols * s >= SMS:
+            return s
+    return tiles
 
 
 def reset_launches() -> None:
@@ -136,13 +160,20 @@ def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
     if xb.data_ptr() % 16:
         raise ValueError("x is not 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    splits = k_splits(K, N)
+    # split partials go through a workspace only where the launch spreads
+    # the splits over blocks (the kernel folds them in-block otherwise)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if lib.bfp_matmul_spreads_splits(M, N, splits) else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data[name].data_ptr() for name, _, _ in _PAYLOADS[t.variant]]
     fn = getattr(lib, f"bfp_matmul_{t.variant}")
     err = fn(xb.data_ptr(), *ptrs, out.data_ptr(), _OUT_CODE[out_dtype],
-             M, K, N, ld, stream)
+             None if ws is None else ws.data_ptr(), splits, M, K, N, ld,
+             stream)
     if err != 0:
         raise RuntimeError(f"bfp_matmul_{t.variant} launch failed with "
-                           f"cudaError_t {err} (M={M}, K={K}, N={N})")
+                           f"cudaError_t {err} (M={M}, K={K}, N={N}, "
+                           f"splits={splits})")
     launches[t.variant] += 1
     return out

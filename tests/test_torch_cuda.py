@@ -1,15 +1,17 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip elsewhere: a CUDA
-kernel has no CPU mode. The file imports no JAX, so it also runs where
-only the port is installed:
+kernel has no CPU mode. The tests of ``k_splits``, the wrapper's pure
+function of the weight's shape, carry no marker and run everywhere. The
+file imports no JAX, so it also runs where only the port is installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, relative to the output's max magnitude:
   * matmul, f32 output: 1e-5. The kernel and the plain version round x and
     w to bf16 alike and accumulate in f32; only the summation order
-    differs.
+    differs (the tensor cores' k16 steps, and the K split's partials
+    summed in ascending order, against one f32 product a row).
   * attention, f32 output: 5e-6 on visible rows, the reference's own
     tolerance for its kernel against the naive path (f32 accumulation
     order and the 32-key tiles of the kernel against the plain version's
@@ -17,6 +19,8 @@ Tolerances, relative to the output's max magnitude:
   * Q8_K quantization: byte for byte, against the plain version on the
     card and on the CPU (every step is correctly rounded on both).
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -32,8 +36,8 @@ torch.set_num_threads(2)
 TOL_F32 = 1e-5
 TOL_ATTN = 5e-6
 TOL_BF16 = 2.0 ** -7
-# (M, K, N): every row tile of the kernel (4, 8 and 16 rows) and ragged
-# column blocks (N a multiple of 16, not of 128)
+# (M, K, N): token tiles of one and eight 8-token groups, K split and not
+# (k_splits), and ragged column blocks (N a multiple of 16, not of 128)
 SHAPES = [(1, 256, 96), (3, 512, 320), (8, 768, 96), (33, 256, 320),
           (64, 512, 208), (5, 256, 16)]
 
@@ -70,17 +74,83 @@ def test_kernel_matches_plain(cuda_device, variant):
     assert PB.launches[variant] == 4 * len(SHAPES)
 
 
+# M of every token tile the kernel takes (1, 2, 4 and 8 groups of 8), and
+# rows at every place of an 8-token group and of a 64-token tile
+ROW_MS = (1, 4, 7, 8, 9, 24, 64, 128, 512)
+ROWS = (0, 1, 3, 6, 7, 8, 9, 15, 23, 33, 63, 64, 100, 127, 128, 300, 511)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", PB.VARIANTS)
 def test_kernel_rows_independent_of_m(cuda_device, variant):
+    """Bit for bit, f32 output: a row of an M-row product equals the M=1
+    product of that row, for M from 1 to 512. K is split in two at
+    (512, 320), where the splits always go through the workspace, and in
+    four at w_up's (2048, 5632), where one block runs a tile's splits in
+    turn at M=512 and the workspace takes them at small M."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = torch.randn(33, 512, generator=g, device=cuda_device).bfloat16()
-    t = PQ.quantize(variant, torch.randn(512, 320, generator=g,
-                                         device=cuda_device))
-    full = PO.bfp_matmul(x, t, impl="cuda")
-    for m in (0, 8, 32):
-        assert torch.equal(PO.bfp_matmul(x[m:m + 1], t, impl="cuda")[0],
-                           full[m])
+    for (K, N), splits in (((512, 320), 2), ((2048, 5632), 4)):
+        assert PB.k_splits(K, N) == splits
+        x = torch.randn(512, K, generator=g, device=cuda_device).bfloat16()
+        t = PQ.quantize(variant, torch.randn(K, N, generator=g,
+                                             device=cuda_device))
+        one = {m: PO.bfp_matmul(x[m:m + 1], t, impl="cuda",
+                                out_dtype=torch.float32)[0] for m in ROWS}
+        for M in ROW_MS:
+            full = PO.bfp_matmul(x[:M], t, impl="cuda",
+                                 out_dtype=torch.float32)
+            for m in ROWS:
+                if m < M:
+                    assert torch.equal(full[m], one[m]), (K, N, M, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PB.VARIANTS)
+@pytest.mark.parametrize("K,N", [(2048, 256), (5632, 2048)])
+def test_kernel_split_k_shapes(cuda_device, variant, K, N):
+    """wk/wv's and w_down's shapes, where K is split (S = 8 and 11): the
+    f32 partials summed in ascending order (through the workspace, or in
+    one block at w_down's M=512) match the plain version, and rows of the
+    largest M equal the M=1 product bit for bit."""
+    assert PB.k_splits(K, N) > 1
+    g = torch.Generator(device=cuda_device).manual_seed(K + N)
+    t = PQ.quantize(variant, torch.randn(K, N, generator=g,
+                                         device=cuda_device) / K ** 0.5)
+    for M in (4, 9, 20, 128, 512):
+        x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+        ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+        yb = PB.bfp_matmul_cuda(x, t)
+        rb = PB.bfp_matmul_plain(x, t)
+        torch.cuda.synchronize()
+        assert _rel_err(y, ref) <= TOL_F32, M
+        assert _rel_err(yb, rb) <= TOL_BF16, M
+    for m in (0, 77, 127, 511):
+        assert torch.equal(PB.bfp_matmul_cuda(x[m:m + 1], t)[0], yb[m]), m
+
+
+def test_k_splits_takes_no_m():
+    """The split along K is a function of the weight's shape alone: a
+    row's value cannot depend on how many rows share the call."""
+    assert list(inspect.signature(PB.k_splits).parameters) == ["K", "N"]
+    assert PB.k_splits(2048, 256) == 8       # 2 column tiles of 128
+    assert PB.k_splits(2048, 32000) == 1     # 500 column tiles
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 5632),
+                                 (5632, 2048), (2048, 32000), (768, 2304),
+                                 (768, 768), (768, 3072), (3072, 768),
+                                 (768, 50257), (2080, 256), (288, 96),
+                                 (256, 1)])
+def test_k_splits_divides_the_tiles_and_fills_the_card(K, N):
+    """S divides the 256-row tiles along K, and it is the least such
+    divisor for which column tiles times S reach the SM count, or every
+    tile when none does."""
+    s = PB.k_splits(K, N)
+    tiles, cols = -(-K // 256), -(-N // PB.BLOCK_N)
+    assert 1 <= s <= tiles and tiles % s == 0
+    assert cols * s >= PB.SMS or s == tiles
+    assert all(cols * d < PB.SMS for d in range(1, s) if tiles % d == 0)
 
 
 @pytest.mark.cuda
