@@ -21,8 +21,9 @@ Phases, each of which exits nonzero on failure:
    bit for bit (at (2048, 256) and (2048, 5632), whose K the kernel
    splits; at the second, one block runs a tile's splits at M=512). The
    fused prefill attention at the serving shape (B=4, C=128, H=32, KH=4,
-   D=64, T=1024+128) with empty (-1) ring slots, at D=128, with a sliding
-   window and with a softcap, f32 and bf16, on visible rows; batch row 0
+   D=64, T=1024+128) with empty (-1) ring slots, at D=128 (G=8 and G=1),
+   D=80 (G=4) and D=96 (G=1), with a sliding window and with a softcap,
+   f32 and bf16, and f32 q with bf16 k/v, on visible rows; batch row 0
    of a B=4 call equals the B=1 call bit for bit. Q3_K_O/Q4_0/Q5_K/Q8_0 at all
    five shapes at decode M and the search's M (128), Q4_0/Q8_0 also at
    (2080, 256) (K a multiple of 32, not of 256), and every variant's
@@ -52,8 +53,9 @@ Phases, each of which exits nonzero on failure:
 6. timing, slice 2: Q3_K/Q4_K/Q6_K as in phase 4 on this layout
    (prefill M 512), and the
    attention kernel's time for the 22 launches of one prefill-chunk
-   forward beside its bound, the plain version's time and
-   ``scaled_dot_product_attention`` with the equivalent boolean mask.
+   forward beside its bound, the plain version's time,
+   ``scaled_dot_product_attention`` with the equivalent boolean mask, and
+   the time of the kernel it replaced (``ATTN_BEFORE_MS``).
 7. search, slice 3: ``serve --policy auto`` with no policy file (the
    launcher's ``resolve_policy`` on a fresh temporary path): calibration
    (2 batches of 2 x 64 tokens), the policy search over
@@ -142,6 +144,9 @@ M_PREFILL2 = SERVE2["prefill_batch"] * SERVE2["prefill_chunk"]
 # (B, C, H, KH, D, ring T): the serving shape of one prefill chunk
 ATTN_SERVE = (SERVE2["prefill_batch"], SERVE2["prefill_chunk"], 32, 4, 64,
               SERVE2["cache_len"])
+# the attention's time a prefill-chunk forward before the tensor-core
+# redesign (PERF.md, H100 80GB HBM3 at 700 W)
+ATTN_BEFORE_MS = 4.347
 # slice 3: --policy auto; a search evaluation is one forward of the eval
 # batch (2 sequences of 64 tokens)
 M_SEARCH = 2 * 64
@@ -367,31 +372,43 @@ def phase_attention(torch, PA, dev):
     """Attention kernel vs plain; returns max abs error (f32 output)."""
     g = torch.Generator(device=dev).manual_seed(5)
     B, C, H, KH, D, T_ring = ATTN_SERVE
-    cases = (("serve", (B, C, H, KH, D, T_ring, 256), {}),
-             ("serve, first chunk", (B, C, H, KH, D, T_ring, 0), {}),
-             ("D=128", (2, 64, 16, 2, 128, 256, 192), {}),
+    f32, bf16 = torch.float32, torch.bfloat16
+    both = ((f32, f32), (bf16, bf16))
+    # (name, attn_inputs' shape, kwargs, (q dtype, k/v dtype) pairs)
+    cases = (("serve", (B, C, H, KH, D, T_ring, 256), {}, both),
+             ("serve, first chunk", (B, C, H, KH, D, T_ring, 0), {}, both),
+             ("D=128", (2, 64, 16, 2, 128, 256, 192), {}, both),
+             ("D=128, G=1 (mobilellama-1.4b)",
+              (2, 64, 16, 16, 128, 256, 192), {}, both),
+             ("D=80, G=4 (h2o-danube-1.8b)", (2, 64, 32, 8, 80, 256, 192),
+              {}, both),
+             ("D=96, G=1 (phi3-mini)", (2, 64, 32, 32, 96, 256, 192), {},
+              both),
+             ("mixed, q f32, k/v bf16", (B, C, H, KH, D, T_ring, 256), {},
+              ((f32, bf16),)),
              ("window 200", (2, C, H, KH, D, T_ring, 384),
-              {"window": 200}),
+              {"window": 200}, both),
              ("softcap 30", (2, C, H, KH, D, T_ring, 256),
-              {"softcap": 30.0}))
+              {"softcap": 30.0}, both))
     worst = 0.0
-    for name, shape, kw in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, qp, kp = attn_inputs(torch, dev, *shape, dtype, g,
-                                          pad=17)
+    for name, shape, kw, dtypes in cases:
+        for qdt, kvdt in dtypes:
+            q, k, v, qp, kp = attn_inputs(torch, dev, *shape, f32, g, pad=17)
+            q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
             y = PA.prefill_attn_cuda(q, k, v, qp, kp, **kw)
             ref = PA.prefill_attn_plain(q, k, v, qp, kp, **kw)
             torch.cuda.synchronize()
             vis = visible_rows(qp, kp, kw.get("window")).any(-1)
             err = rel_err(y[vis], ref[vis])
-            tol = TOL_ATTN if dtype == torch.float32 else TOL_BF16
+            tol = TOL_ATTN if qdt == f32 else TOL_BF16
+            dt = str(qdt) if qdt == kvdt else f"{qdt} x {kvdt}"
             print(f"[kernels] prefill_attn {name} {tuple(q.shape)} x "
-                  f"T={k.shape[1]} {dtype}: rel {err:.2e} (tol {tol:.1e}) "
+                  f"T={k.shape[1]} {dt}: rel {err:.2e} (tol {tol:.1e}) "
                   f"on {int(vis.sum())} visible rows of "
                   f"{vis.numel()}", flush=True)
             check(bool(torch.isfinite(y[vis]).all()), "non-finite output")
-            check(err <= tol, f"prefill_attn {name} {dtype} error")
-            if dtype == torch.float32:
+            check(err <= tol, f"prefill_attn {name} {dt} error")
+            if qdt == f32:
                 worst = max(worst, float((y - ref)[vis].abs().max()))
     q, k, v, qp, kp = attn_inputs(torch, dev, B, C, H, KH, D, T_ring, 256,
                                   torch.bfloat16, g)
@@ -633,7 +650,8 @@ def phase_attn_timing(torch, PA, n_layers, dev):
           f"kernel {kern:.3f} ms, bound {res['bound_ms']:.4f} ms "
           f"({res['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
           f"GFLOP), plain {plain:.3f} ms, scaled_dot_product_attention "
-          f"{lib:.3f} ms", flush=True)
+          f"{lib:.3f} ms; x lib {kern / lib:.2f}; the CUDA-core kernel it "
+          f"replaced took {ATTN_BEFORE_MS} ms", flush=True)
     return res
 
 

@@ -12,7 +12,8 @@ garbage on every path, and callers discard them.
 the same ``(BLOCK_Q, BLOCK_K)`` tiles and the same GQA fold. CPU tensors
 take it; on the card it is the yardstick the kernel is checked against.
 ``prefill_attn_cuda`` launches the kernel (``csrc/prefill_attn.cu``, CUDA
-C++ for sm_90a; its source note gives its bound and design).
+C++ for sm_90a on the tensor cores, any head dim up to ``MAX_HEAD_DIM``;
+its source note gives its bound and design).
 ``prefill_attn_fused`` dispatches by device: a CUDA tensor launches the
 kernel or raises, nothing falls back.
 
@@ -30,7 +31,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK_Q, BLOCK_K = 128, 256  # the reference kernel's tiles
-HEAD_DIMS = (64, 128)       # the kernel's template instances
+MAX_HEAD_DIM = 256          # the kernel's widest instance
 
 launches: Dict[str, int] = {"prefill_attn": 0}
 
@@ -115,8 +116,9 @@ def _check(q, k, v, q_pos, kv_pos):
     if k.shape[0] != B or k.shape[3] != D or H % KH:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H must be a multiple of KH)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims up to {MAX_HEAD_DIM}, "
+                         f"got {D}")
     if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE \
             or v.dtype != k.dtype:
         raise ValueError(f"the kernel takes q and k/v in float32 or "

@@ -93,6 +93,19 @@ def test_plain_matches_reference_ring_semantics(dtype):
     _compare(q, k, v, qp, kp, dtype=dtype)
 
 
+@pytest.mark.parametrize("D,H,KH", [(80, 8, 2), (96, 4, 4)])
+def test_plain_matches_reference_head_dims(D, H, KH):
+    """Head dims that are no power of two: h2o-danube's 80 (GQA) and
+    phi3-mini's 96 (no GQA), over a ring with empty slots and a chunk."""
+    B, C, T = 2, 12, 40
+    q, k, v = _mk(D, B, C, T, H, KH, D)
+    rng = np.random.default_rng(D + 1)
+    kp = np.concatenate([rng.integers(-1, 28, (B, T - C)),
+                         np.broadcast_to(28 + np.arange(C), (B, C))], 1)
+    qp = np.ascontiguousarray(kp[:, T - C:])
+    _compare(q, k, v, qp.astype(np.int32), kp.astype(np.int32))
+
+
 @pytest.mark.parametrize("window,softcap", [(5, None), (None, 8.0),
                                             (7, 4.0)])
 def test_plain_matches_reference_window_softcap(window, softcap):

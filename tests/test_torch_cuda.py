@@ -14,8 +14,9 @@ Tolerances, relative to the output's max magnitude:
     summed in ascending order, against one f32 product a row).
   * attention, f32 output: 5e-6 on visible rows, the reference's own
     tolerance for its kernel against the naive path (f32 accumulation
-    order and the 32-key tiles of the kernel against the plain version's
-    256). bf16 output: 2**-7, one bf16 ulp at the max.
+    order, the kernel's visible key tiles against the plain version's
+    256-key tiles, and 3xTF32's residual of about 2**-21). bf16 output:
+    2**-7, one bf16 ulp at the max.
   * Q8_K quantization: byte for byte, against the plain version on the
     card and on the CPU (every step is correctly rounded on both).
 """
@@ -259,25 +260,68 @@ def _visible(qp, kp, window):
     return vis.any(-1)
 
 
+# (q dtype, k/v dtype): the bf16 tensor-core route, the 3xTF32 route, and
+# a mix, which takes the 3xTF32 route
+ATTN_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16)]
+
+
+def _attn_check(q, k, v, qp, kp, window=None, softcap=None):
+    y = PA.prefill_attn_fused(q, k, v, qp, kp, window=window,
+                              softcap=softcap)
+    ref = PA.prefill_attn_plain(q, k, v, qp, kp, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    assert y.dtype == q.dtype and y.shape == q.shape
+    vis = _visible(qp, kp, window)
+    tol = TOL_ATTN if q.dtype == torch.float32 else TOL_BF16
+    assert bool(torch.isfinite(y[vis]).all())
+    assert _rel_err(y[vis], ref[vis]) <= tol, (q.dtype, k.dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", PA.HEAD_DIMS)
+@pytest.mark.parametrize("D", [32, 36, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("window,softcap", [(None, None), (40, None),
                                             (None, 30.0)])
 def test_attention_kernel_matches_plain(cuda_device, D, window, softcap):
+    """Every head dim of the configs (64, 80, 96, 128), the narrowest and
+    widest instance, and D = 36, which no 16-byte chunk divides (copied
+    element by element)."""
     PA.reset_launches()
-    for dtype in (torch.float32, torch.bfloat16):
+    for qdt, kvdt in ATTN_DTYPES:
         q, k, v, qp, kp = _attn_inputs(cuda_device, 2, 40, 140, 8, 2, D,
-                                       dtype, seed=D)
-        y = PA.prefill_attn_fused(q, k, v, qp, kp, window=window,
-                                  softcap=softcap)
-        ref = PA.prefill_attn_plain(q, k, v, qp, kp, window=window,
-                                    softcap=softcap)
-        torch.cuda.synchronize()
-        assert y.dtype == dtype and y.shape == q.shape
-        vis = _visible(qp, kp, window)
-        tol = TOL_ATTN if dtype == torch.float32 else TOL_BF16
-        assert _rel_err(y[vis], ref[vis]) <= tol, dtype
-    assert PA.launches["prefill_attn"] == 2
+                                       torch.float32, seed=D)
+        _attn_check(q.to(qdt), k.to(kvdt), v.to(kvdt), qp, kp, window,
+                    softcap)
+    assert PA.launches["prefill_attn"] == len(ATTN_DTYPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", ATTN_DTYPES)
+def test_attention_kernel_sparse_ring_and_window(cuda_device, qdt, kvdt):
+    """A serving-like ring that is mostly empty: runs of visible slots
+    between long runs of -1, past T's last full tile; and a window that
+    makes a key tile visible to some rows of a block and not to others
+    (G = 8 folds 8 chunk positions into a 64-row block)."""
+    rng = np.random.default_rng(11)
+    B, C, H, KH, D, ring = 2, 96, 16, 2, 64, 700
+    T = ring + C
+    start = 500
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device) for s in ((B, C, H, D), (B, T, KH, D),
+                                          (B, T, KH, D)))
+    slots = np.full((B, ring), -1)
+    for b in range(B):                 # a few runs of the past positions
+        for lo in (0, 130, 333, 640):
+            n = int(rng.integers(5, 40))
+            slots[b, lo:lo + n] = rng.integers(0, start, n)
+    qp = np.broadcast_to(start + np.arange(C), (B, C))
+    kp = np.concatenate([slots, qp], 1).astype(np.int32)
+    qp = torch.from_numpy(np.ascontiguousarray(qp, np.int32)).to(cuda_device)
+    kp = torch.from_numpy(kp).to(cuda_device)
+    q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
+    for window in (None, 60, 200):
+        _attn_check(q, k, v, qp, kp, window)
 
 
 @pytest.mark.cuda
@@ -291,10 +335,14 @@ def test_attention_kernel_batch_rows_independent(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
-    q, k, v, qp, kp = _attn_inputs(cuda_device, 1, 8, 16, 4, 2, 64,
+    D = PA.MAX_HEAD_DIM + 8
+    q, k, v, qp, kp = _attn_inputs(cuda_device, 1, 8, 16, 4, 2, D,
                                    torch.float32, seed=4)
     with pytest.raises(ValueError, match="head dims"):
-        PA.prefill_attn_cuda(q[..., :32], k[..., :32], v[..., :32], qp, kp)
+        PA.prefill_attn_cuda(q, k, v, qp, kp)
+    q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    assert PA.prefill_attn_cuda(q, k, v, qp, kp).shape == q.shape
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         PA.prefill_attn_cuda(q.half(), k, v, qp, kp)
     with pytest.raises(ValueError, match="CUDA tensor"):
