@@ -98,8 +98,31 @@ Phases, each of which exits nonzero on failure:
    integer-path forward (timed in groups of 256 launches, each behind its
    own spin kernel, and summed: a stream queues only about a thousand
    launches) and once at (4096, 5632), beside its bound and the plain
-   version's time; the N = 50257 q2_k head at decode M beside its bound
-   and torch.matmul on the pre-dequantized bf16 weight.
+   version's time; gpt2-paper's decode forward per packed (variant, K,
+   N), the N = 50257 q2_k head among them, beside its bound and
+   torch.matmul on the pre-dequantized bf16 weights.
+14. serve, slice 5: full-width llama3.2-1b (LM head tied to the
+   embedding: an f32 product, no kernel), qwen3-1.7b (qk-norm),
+   phi3-mini-3.8b (head N = 32064) and h2o-danube-1.8b (sliding window),
+   each from random weights (seeded) packed with paper_llama_mix on the
+   card, serve path 1's traffic; every forward must launch 32 + 80, 57 +
+   140, 65 + 160 and 49 + 120 q2_k + q3_k kernels, and greedy tokens must
+   equal generate_reference. qwen3-1.7b also serves path 2's traffic with
+   ``attn_impl="fused"``: 28 attention kernels every prefill-chunk
+   forward (D = 128, G = 2). phi3-mini-3.8b's decode forward is timed
+   per (variant, K, N) as phase 4 times a variant.
+15. temperature, slice 5: full-width qwen3-1.7b under paper_llama_mix at
+   temperature 0.8, seed 7, path 1's traffic, without and with an EOS id
+   (the token request 0 samples at its third step without it): the
+   launch counts as in phase 14; run() equals generate_reference (on 4
+   prompts, all it takes), an engine with prefill_batch=1 and a second
+   engine of seed 7; seed 8 and greedy give other tokens; EOS ends
+   request 0 at its third step.
+16. long sequence, slice 5: full-width llama3.2-1b ``forward_seq`` at
+   B=1, S=4096 under ``"auto"``, which takes the blockwise attention
+   (launch counts zeroed just before and read just after: 32 + 80); its
+   logits at the last 16 positions against ``attn_impl="naive"`` at
+   ``TOL_LONG``.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -174,6 +197,22 @@ Q8K_KS = (768, 2048, 3072, 5632)
 Q8K_BIG = (4096, 5632)
 Q8K_BYTES_PER_VALUE = 4 + 1 + 4 / 256 + 2 / 16   # f32 in; qs, d, bsums out
 GPT2_HEAD = (768, 50257)
+# slice 5: the rest of the dense family under paper_llama_mix, path 1's
+# traffic; matmul launches a forward (a tied head is an f32 product with
+# the embedding, no kernel)
+SLICE5_MODELS = (("llama3.2-1b", {"q2_k": 32, "q3_k": 80}),
+                 ("qwen3-1.7b", {"q2_k": 57, "q3_k": 140}),
+                 ("phi3-mini-3.8b", {"q2_k": 65, "q3_k": 160}),
+                 ("h2o-danube-1.8b", {"q2_k": 49, "q3_k": 120}))
+FUSED5 = "qwen3-1.7b"           # also serves path 2's traffic, fused
+TIMED5 = "phi3-mini-3.8b"       # its decode shapes timed one by one
+TEMP5 = dict(temperature=0.8, seed=7)
+LONG5 = ("llama3.2-1b", 4096, 16)   # arch, S, last positions compared
+# blockwise against naive at S = 4096 in bf16, relative to the largest
+# logit: the two sum the same f32 softmax in another order, so a bf16
+# rounding of an attention output can flip by one step (2**-8) and move
+# the next layers' inputs; 8 such steps across 16 layers
+TOL_LONG = 2.0 ** -5
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -546,6 +585,19 @@ def _device_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def _timing(ms, plain_ms, library_ms, nbytes, flops, launches,
+            peak=BF16_FLOPS_PER_S):
+    """A timed row: the kernel's, the plain version's and the library
+    call's ms beside the bound, the larger of ``nbytes`` over the HBM
+    rate and ``flops`` over ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                launches_per_forward=launches, bytes=nbytes, flops=flops)
+
+
 def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
                  big="prefill", head_m=M_DECODE):
     """Per variant, one forward's launches at decode M and at ``m_prefill``
@@ -586,13 +638,8 @@ def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
                          * 2 for x, t, _ in jobs)
             flops = sum(2 * x.shape[0] * t.shape[0] * t.shape[1]
                         for x, t, _ in jobs)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_FLOPS_PER_S * 1e3
-            res[phase] = dict(
-                ms=kern, plain_ms=plain, library_ms=lib,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                launches_per_forward=len(jobs), bytes=nbytes, flops=flops)
+            res[phase] = _timing(kern, plain, lib, nbytes, flops,
+                                 len(jobs))
             print(f"[{tag}] {variant} {phase} forward ({len(jobs)} "
                   f"launches, M={M}): kernel {kern:.3f} ms, bound "
                   f"{res[phase]['bound_ms']:.3f} ms ({res[phase]['bound_by']}"
@@ -639,12 +686,7 @@ def phase_attn_timing(torch, PA, n_layers, dev):
     pairs = sum(int(visible_rows(qp, kp, None).sum())
                 for _, _, _, qp, kp in jobs)
     flops = pairs * H * 4 * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    res = dict(ms=kern, plain_ms=plain, library_ms=lib,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               launches_per_forward=len(jobs), bytes=nbytes, flops=flops)
+    res = _timing(kern, plain, lib, nbytes, flops, len(jobs))
     print(f"[timing2] prefill_attn prefill-chunk forward ({len(jobs)} "
           f"launches, B={B} C={C} H={H} KH={KH} D={D} T={T_ring + C}): "
           f"kernel {kern:.3f} ms, bound {res['bound_ms']:.4f} ms "
@@ -934,13 +976,9 @@ def phase_q8k_timing(torch, PK, sched_inputs, dev):
                     for c in _groups(xs, Q8K_GROUP_PLAIN))
         values = sum(x.numel() for x in xs)
         nbytes = values * Q8K_BYTES_PER_VALUE
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         # abs, max, multiply, round and clamp: ~5 f32 operations a value
-        t_ops = values * 5 / F32_FLOPS_PER_S * 1e3
-        res[name] = dict(ms=kern, plain_ms=plain,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else
-                         "operations", launches=len(xs), bytes=nbytes)
+        res[name] = _timing(kern, plain, None, nbytes, values * 5, len(xs),
+                            peak=F32_FLOPS_PER_S)
         print(f"[timing4] q8k_quantize {name} ({len(xs)} launches, "
               f"{values} values): kernel {kern:.4f} ms, bound "
               f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}, "
@@ -953,31 +991,201 @@ def _groups(xs, n):
     return [xs[i:i + n] for i in range(0, len(xs), n)]
 
 
-def phase_head_timing(torch, qp, Q, PB, dev):
-    """gpt2-paper's N = 50257 q2_k LM head at decode M."""
-    t = qp["lm_head"]
-    K, N = t.shape
-    g = torch.Generator(device=dev).manual_seed(12)
-    x = torch.randn(M_DECODE, K, generator=g, device=dev).bfloat16()
-    w = Q.dequantize(t, torch.bfloat16)
-    kern = _device_ms(torch, lambda: [PB.bfp_matmul_cuda(x, t)], 20)
-    plain = _device_ms(torch, lambda: [PB.bfp_matmul_plain(x, t)], 3)
-    lib = _device_ms(torch, lambda: [torch.matmul(x, w)], 20)
-    nbytes = x.numel() * 2 + t.nbytes + M_DECODE * N * 2
-    flops = 2 * M_DECODE * K * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    res = dict(ms=kern, plain_ms=plain, library_ms=lib,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               launches_per_forward=1, bytes=nbytes, flops=flops)
-    print(f"[timing4] q2_k gpt2-paper LM head ({K}, {N}) at M={M_DECODE}: "
-          f"kernel {kern:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}, {nbytes / 1e6:.2f} MB; kernel at "
-          f"{res['bound_ms'] / kern:.1%} of it), plain {plain:.3f} ms, "
-          f"torch.matmul on bf16 {lib:.4f} ms (kernel / torch.matmul "
-          f"{kern / lib:.2f}x)", flush=True)
-    return res
+def _packed(tree):
+    """The packed weights (QTensors) of a parameter tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _packed(v)
+        elif hasattr(v, "variant"):
+            yield v
+
+
+def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag):
+    """One decode forward's launches (M = max_slots) of each packed
+    (variant, K, N) of the model, timed as phase 4 times a variant's."""
+    groups = {}
+    for t in _packed(qp["layers"]):
+        groups.setdefault((t.variant, *t.shape), []).extend(
+            t.layer(i) for i in range(cfg.n_layers))
+    if hasattr(qp.get("lm_head"), "variant"):
+        t = qp["lm_head"]
+        groups.setdefault((t.variant, *t.shape), []).append(t)
+    g = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for (variant, K, N), ts in sorted(groups.items()):
+        x = torch.randn(M_DECODE, K, generator=g, device=dev).bfloat16()
+        dense = [Q.dequantize(t, torch.bfloat16) for t in ts]
+        kern = _device_ms(torch, lambda: [PB.bfp_matmul_cuda(x, t)
+                                          for t in ts], 10)
+        plain = _device_ms(torch, lambda: [PB.bfp_matmul_plain(x, t)
+                                           for t in ts], 3)
+        lib = _device_ms(torch, lambda: [torch.matmul(x, w)
+                                         for w in dense], 10)
+        del dense
+        nbytes = sum(x.numel() * 2 + t.nbytes + M_DECODE * N * 2
+                     for t in ts)
+        flops = 2 * M_DECODE * K * N * len(ts)
+        res = _timing(kern, plain, lib, nbytes, flops, len(ts))
+        out.setdefault(variant, {})[f"{K}x{N}"] = res
+        print(f"[{tag}] {cfg.name} {variant} ({K}, {N}) decode forward "
+              f"({len(ts)} launches, M={M_DECODE}): kernel {kern:.4f} ms, "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+              f"{nbytes / 1e6:.2f} MB; kernel at {res['bound_ms'] / kern:.1%}"
+              f" of it), plain {plain:.3f} ms, torch.matmul on bf16 "
+              f"{lib:.4f} ms (kernel / torch.matmul {kern / lib:.2f}x)",
+              flush=True)
+    return out
+
+
+def phase_slice5(torch, np, get_arch, T, quantize_params, variant_counts,
+                 get_policy, Engine, ServeConfig, PB, PA, Q, dev):
+    """Phases 14-16: the rest of the dense family served at full width,
+    temperature sampling, and a 4096-token forward through blockwise
+    attention. Returns (matmul launches by path, attention launches by
+    path, the per-shape timing of ``TIMED5``)."""
+    launches, attn, timing = {}, {}, None
+    keep = {}
+    t_phase = time.perf_counter()
+    for arch, per_forward in SLICE5_MODELS:
+        cfg = get_arch(arch)
+        qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                             get_policy, "paper_llama_mix", dev, per_forward)
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                 PROMPT_LEN)]
+                   for _ in range(N_REQUESTS)]
+        launches[f"{arch}_serve"], _, _ = phase_serve(
+            torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev,
+            f"serve5 {arch}", SERVE, prompts, per_forward, 0)
+        if arch == FUSED5:
+            cfg2 = cfg.replace(attn_impl="fused")
+            lens = rng.integers(PROMPT_RANGE2[0], PROMPT_RANGE2[1] + 1,
+                                N_REQUESTS)
+            prompts2 = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                        for n in lens]
+            key = f"{arch}_fused_serve"
+            launches[key], attn[key], _ = phase_serve(
+                torch, cfg2, qp, Engine, ServeConfig, PB, PA, T, dev,
+                f"serve5 {arch} fused", SERVE2, prompts2, per_forward,
+                cfg.n_layers)
+        if arch == TIMED5:
+            timing = phase_shape_timing(torch, qp, cfg, PB, Q, dev,
+                                        "timing5")
+        if arch in (FUSED5, LONG5[0]):
+            keep[arch] = (cfg, qp, prompts, per_forward)
+        del qp
+        torch.cuda.empty_cache()
+    print(f"[serve5] phase 14 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+    t_phase = time.perf_counter()
+    launches[f"{FUSED5}_temperature"] = phase_temperature(
+        torch, *keep.pop(FUSED5), Engine, ServeConfig, PB, dev)
+    print(f"[temp5] phase 15 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+    t_phase = time.perf_counter()
+    launches[f"{LONG5[0]}_forward_seq_{LONG5[1]}"] = phase_long(
+        torch, *keep.pop(LONG5[0]), T, PB, dev)
+    print(f"[long5] phase 16 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches, attn, timing
+
+
+def phase_temperature(torch, cfg, qp, prompts, per_forward, Engine,
+                      ServeConfig, PB, dev):
+    """Path 1's traffic sampled at temperature 0.8 from seed 7, without
+    and with an EOS id: run() against generate_reference (on max_slots
+    prompts, all it takes), against prefill_batch=1 and against a second
+    engine of the same seed; another seed must give other tokens. The
+    launch counts are zeroed just before the first 8-request run and read
+    just after."""
+    def engine(**kw):
+        return Engine(cfg, qp, ServeConfig(**{**SERVE, **TEMP5, **kw}),
+                      device=dev)
+
+    slots = SERVE["max_slots"]
+    few = prompts[:slots]
+    engine().generate(few)                      # warm-up
+    torch.cuda.synchronize()
+    launches = None
+    eos = None
+    for with_eos in (False, True):
+        kw = {"eos_id": eos} if with_eos else {}
+        eng = engine(**kw)
+        if launches is None:
+            PB.reset_launches()
+            full = eng.generate(prompts)        # the main path
+            torch.cuda.synchronize()
+            launches = dict(PB.launches)
+            fwd = eng.stats["forwards"]
+            want = {v: per_forward.get(v, 0) * fwd for v in PB.VARIANTS}
+            check(fwd > 0 and launches == want,
+                  f"temperature: expected {per_forward} launches per "
+                  f"forward, got {launches} over {fwd} forwards")
+        else:
+            full = eng.generate(prompts)
+        check(engine(**kw).generate(prompts) == full,
+              "temperature: the same seed gave other tokens")
+        a = eng.generate(few)
+        eos = a[0][2] if eos is None else eos
+        ref = eng.generate_reference(few)
+        single = engine(prefill_batch=1, **kw).generate(few)
+        other = engine(seed=TEMP5["seed"] + 1, **kw).generate(few)
+        greedy = Engine(cfg, qp, ServeConfig(**{**SERVE, **kw}),
+                        device=dev).generate(few)
+        print(f"[temp5] {cfg.name} T={TEMP5['temperature']} seed "
+              f"{TEMP5['seed']} eos_id={kw.get('eos_id')}: run() {a}; "
+              f"generate_reference equal {ref == a}, prefill_batch=1 "
+              f"equal {single == a}, seed {TEMP5['seed'] + 1} differs "
+              f"{other != a}, greedy differs {greedy != a}", flush=True)
+        check(ref == a, "temperature: run() != generate_reference")
+        check(single == a, "temperature: prefill_batch=1 gave other tokens")
+        check(other != a, "temperature: another seed gave the same tokens")
+        check(greedy != a, "temperature: sampling gave the greedy tokens")
+        check(all(0 <= x < cfg.vocab_size for t in full for x in t),
+              "temperature: token out of vocabulary")
+        if with_eos:
+            check(len(a[0]) <= 3 and a[0][-1] == eos,
+                  f"temperature: eos_id={eos} did not end request 0 at "
+                  f"its third step: {a[0]}")
+    return launches
+
+
+def phase_long(torch, cfg, qp, prompts, per_forward, T, PB, dev):
+    """forward_seq at B=1, S=4096 under "auto" (blockwise attention), the
+    launch counts zeroed just before and read just after; its logits at
+    the last positions against attn_impl="naive"."""
+    _, S, n_last = LONG5
+    g = torch.Generator(device=dev).manual_seed(16)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev)
+    check(cfg.attn_impl == "auto" and S > T.NAIVE_MAX_SEQ,
+          "the long forward must take blockwise under auto")
+    torch.cuda.synchronize()
+    PB.reset_launches()
+    t0 = time.perf_counter()
+    logits = T.forward_seq(qp, cfg, tokens=toks)[0, -n_last:]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(PB.launches)
+    check(launches == {v: per_forward.get(v, 0) for v in PB.VARIANTS},
+          f"long forward: expected {per_forward} launches, got {launches}")
+    t0 = time.perf_counter()
+    naive = T.forward_seq(qp, cfg.replace(attn_impl="naive"),
+                          tokens=toks)[0, -n_last:]
+    torch.cuda.synchronize()
+    dt_naive = time.perf_counter() - t0
+    err = rel_err(logits, naive)
+    same = int((logits.argmax(-1) == naive.argmax(-1)).sum())
+    print(f"[long5] {cfg.name} forward_seq B=1 S={S} (blockwise, q/kv "
+          f"chunks {cfg.attn_q_chunk}/{cfg.attn_kv_chunk}) in {dt:.3f}s, "
+          f"naive {dt_naive:.3f}s; logits at the last {n_last} positions: "
+          f"rel {err:.2e} (tol {TOL_LONG:.2e}), argmax equal at {same}/"
+          f"{n_last}; launches {launches}", flush=True)
+    check(bool(torch.isfinite(logits).all()), "long forward: non-finite")
+    check(err <= TOL_LONG, "long forward: blockwise disagrees with naive")
+    return launches
 
 
 def main() -> None:
@@ -1104,9 +1312,16 @@ def main() -> None:
         integer[arch], _ = phase_integer(torch, cfg4, qp, isa, PK, ops, ref,
                                          Q, model_matmuls, dev, "integer")
         if arch == "gpt2-paper":
-            head_timing = phase_head_timing(torch, qp, Q, PB, dev)
+            head_timing = phase_shape_timing(
+                torch, qp, cfg4, PB, Q, dev, "timing4")["q2_k"][
+                    "x".join(map(str, GPT2_HEAD))]
         del qp
         torch.cuda.empty_cache()
+
+    # slice 5: the rest of the dense family, temperature, blockwise
+    launches5, attn5, timing5 = phase_slice5(
+        torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
+        Engine, ServeConfig, PB, PA, Q, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1119,7 +1334,8 @@ def main() -> None:
                    "policy_auto_search": launches_search[v],
                    "policy_auto_searched_serve": launches3s[v],
                    "policy_auto_hand_mix_serve": launches3l[v],
-                   **{f"{a}_serve": launches4[a][v] for a in launches4}}
+                   **{f"{a}_serve": launches4[a][v] for a in launches4},
+                   **{p: launches5[p][v] for p in launches5}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -1136,6 +1352,8 @@ def main() -> None:
             **{k: t[k] for k in ("prefill", "search") if k in t}})
         if v in timing and v in timing2:    # on both paths' layouts
             kernels[-1]["extended_mix"] = timing2[v]
+        if v in timing5:
+            kernels[-1][f"{TIMED5}_decode_shapes"] = timing5[v]
         if v == "q2_k":
             kernels[-1]["gpt2_head_n50257"] = head_timing
             kernels[-1]["max_abs_err_n50257"] = max_abs["q2_k_n50257"]
@@ -1143,9 +1361,9 @@ def main() -> None:
         "name": "prefill_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/prefill_attn.cu",
         "replaces": "src/repro/kernels/prefill_attn.py:80",
-        "launches": attn1 + attn2,
+        "launches": attn1 + attn2 + sum(attn5.values()),
         "launches_by_path": {"paper_llama_mix": attn1,
-                             "extended_mix_fused": attn2},
+                             "extended_mix_fused": attn2, **attn5},
         "max_abs_err": max_abs["prefill_attn"],
         "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],

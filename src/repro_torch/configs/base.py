@@ -4,10 +4,11 @@ Counterpart of ``repro.configs.base``. ``ModelConfig`` mirrors the
 reference field by field (the tests check the mirror), so a config moves
 between the two packages by value. Each arch module registers its full
 config and a ``REDUCED`` same-family config for CPU tests. The port has
-the paper's three evaluation models: ``tinyllama-1.1b`` and
-``mobilellama-1.4b`` (dense llama family) and ``gpt2-paper`` (gpt2
-family); the other architectures join with the slices that port their
-families.
+the dense llama family whole (``llama3.2-1b`` with its tied LM head,
+``qwen3-1.7b`` with qk-norm, ``phi3-mini-3.8b``, ``h2o-danube-1.8b``
+with its sliding window, and the paper's ``tinyllama-1.1b`` and
+``mobilellama-1.4b``) and the gpt2 family (``gpt2-paper``); the other
+architectures join with the slices that port their families.
 """
 from __future__ import annotations
 
@@ -107,8 +108,11 @@ def torch_dtype(name: str) -> torch.dtype:
                          f"{sorted(_TORCH_DTYPES)}") from None
 
 
-# the paper's own evaluation models (Table III/IV)
-ARCH_IDS = ("gpt2-paper", "tinyllama-1.1b", "mobilellama-1.4b")
+ARCH_IDS = (
+    "llama3.2-1b", "qwen3-1.7b", "phi3-mini-3.8b", "h2o-danube-1.8b",
+    # the paper's own evaluation models (Table III/IV)
+    "gpt2-paper", "tinyllama-1.1b", "mobilellama-1.4b",
+)
 
 _MODULE_FOR = {i: i.replace("-", "_").replace(".", "_") for i in ARCH_IDS}
 _REGISTRY: Dict[str, "ArchSpec"] = {}

@@ -11,16 +11,25 @@ queue of requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --policy auto --policy-json results/auto_tinyllama.json
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --policy paper_llama_mix --temperature 0.8 --seed 7 --stream
+
 ``--policy auto`` loads the searched policy file ``--policy-json`` if it
 exists (recalibrating first when a rule asks for q3_k_o, whose outlier
 rows follow the activation stats) and otherwise runs the policy search
 (``launch/policy_search.py``, ``--search-rounds`` refinement rounds),
 writes the file and packs with the stats the search used.
 
-The weights and prompts are random, drawn from seed 0. The model runs on the GPU
-(``--device cuda``, the default; it raises where there is none). Add
-``--reduced --device cpu`` for a small run on the CPU through the
-kernel's plain PyTorch version.
+Every dense config of the port serves (``--arch`` llama3.2-1b,
+qwen3-1.7b, phi3-mini-3.8b, h2o-danube-1.8b, tinyllama-1.1b,
+mobilellama-1.4b) and gpt2-paper. ``--temperature T`` samples (0, the
+default, is greedy), ``--eos-id`` ends a request at that token,
+``--stream`` prints each token as it is emitted and ``--no-quant`` serves
+the float weights (plain ``torch.matmul``, no kernel). The weights, the
+prompts and the sampling stream are random, drawn from ``--seed``
+(default 0). The model runs on the GPU (``--device cuda``, the default;
+it raises where there is none). Add ``--reduced --device cpu`` for a
+small run on the CPU through the kernel's plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -39,8 +48,6 @@ from repro_torch.core.qlinear import (quantize_params, quantized_param_bytes,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, ServeConfig
-
-SEED = 0            # random weights and prompts
 
 
 def resolve_policy(cfg, params, *, policy: str, arch: str,
@@ -78,7 +85,9 @@ def resolve_policy(cfg, params, *, policy: str, arch: str,
     return pol, info["stats"].for_paths([p for p, _ in pol.rules]), info
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run the launcher on ``argv``; returns ``(engine, results)``, the
+    engine after its run and ``{request id: tokens}``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -93,6 +102,8 @@ def main(argv=None) -> None:
                          "results/auto_<arch>.json)")
     ap.add_argument("--search-rounds", type=int, default=2,
                     help="refinement rounds for the --policy auto search")
+    ap.add_argument("--no-quant", action="store_true",
+                    help="serve the float weights (no packing, no kernel)")
     ap.add_argument("--requests", type=int, default=4,
                     help="queue depth (may exceed --slots)")
     ap.add_argument("--slots", type=int, default=4,
@@ -109,37 +120,55 @@ def main(argv=None) -> None:
                     help="prompt pad granularity")
     ap.add_argument("--prompt-len", type=int, default=6)   # paper: 6 tokens
     ap.add_argument("--tokens", type=int, default=10)      # paper: 10 tokens
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights, the prompts and the sampling")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they are emitted")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch, reduced=args.reduced)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
-    t0 = time.perf_counter()
-    policy, calib, _ = resolve_policy(
-        cfg, params, policy=args.policy, arch=args.arch,
-        policy_json=args.policy_json, search_rounds=args.search_rounds,
-        device=dev)
-    qp, report = quantize_params(params, policy, calib=calib)
-    del params
-    sizes = quantized_param_bytes(qp)
-    print(f"quantized with policy {args.policy} in "
-          f"{time.perf_counter() - t0:.1f}s: {variant_counts(report, qp)} "
-          f"matmuls; packed {sizes['packed'] / 2**20:.1f} MiB + residual "
-          f"{sizes['unpacked'] / 2**20:.1f} MiB")
+    if args.no_quant:
+        qp = params
+        print("serving UNQUANTIZED (baseline)")
+    else:
+        t0 = time.perf_counter()
+        policy, calib, _ = resolve_policy(
+            cfg, params, policy=args.policy, arch=args.arch,
+            policy_json=args.policy_json, search_rounds=args.search_rounds,
+            device=dev)
+        qp, report = quantize_params(params, policy, calib=calib)
+        del params
+        sizes = quantized_param_bytes(qp)
+        print(f"quantized with policy {args.policy} in "
+              f"{time.perf_counter() - t0:.1f}s: "
+              f"{variant_counts(report, qp)} matmuls; packed "
+              f"{sizes['packed'] / 2**20:.1f} MiB + residual "
+              f"{sizes['unpacked'] / 2**20:.1f} MiB")
 
-    scfg = ServeConfig(max_new_tokens=args.tokens, cache_len=args.cache_len,
+    scfg = ServeConfig(max_new_tokens=args.tokens,
+                       temperature=args.temperature, eos_id=args.eos_id,
+                       cache_len=args.cache_len, seed=args.seed,
                        max_slots=args.slots,
                        decode_chunk=args.chunk or args.tokens,
                        prefill_batch=args.prefill_batch,
                        prefill_chunk=args.prefill_chunk,
                        prefill_bucket=args.prefill_bucket)
     engine = Engine(cfg, qp, scfg, device=dev)
-    rng = np.random.default_rng(SEED)
+    on_token = None
+    if args.stream:
+        on_token = lambda rid, tok: print(f"  [req {rid}] += {tok}")
+    rng = np.random.default_rng(args.seed)
     ids = [engine.submit([int(t) for t in rng.integers(0, cfg.vocab_size,
-                                                       args.prompt_len)])
+                                                       args.prompt_len)],
+                         on_token=on_token)
            for _ in range(args.requests)]
     results = engine.run()
     for rid in ids[:4]:
@@ -151,6 +180,7 @@ def main(argv=None) -> None:
           f"{s['tok_per_s']:.1f} tok/s ({s['tokens']} tokens, "
           f"{s['host_syncs']} host syncs / {s['requests']} requests, "
           f"{s['chunks']} chunks) on {dev}")
+    return engine, results
 
 
 if __name__ == "__main__":

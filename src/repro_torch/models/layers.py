@@ -9,8 +9,9 @@ layouts are the reference's: q ``(B, S, H, D)``, caches
 
 The matmul inputs feed ``core.calibrate.tap`` at the reference's sites
 (inert outside ``calibrate.collecting``). Attention is the reference's
-materializing ``naive`` path in f32, or, for a prefill chunk with
-``impl="fused"``, the fused flash-style kernel
+materializing ``naive`` path in f32, its ``blockwise`` online softmax over
+KV chunks (plain torch, as the reference has no kernel for it), or, for a
+prefill chunk with ``impl="fused"``, the fused flash-style kernel
 ``kernels.prefill_attn.prefill_attn_fused`` (the CUDA kernel on the card,
 its plain version on the CPU).
 """
@@ -123,6 +124,61 @@ def naive_attention(q, k, v, *, causal=True, window=None, scale=None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=None, scale=None,
+                        softcap=None, q_chunk=1024, kv_chunk=1024):
+    """Exact chunked online-softmax attention over a full sequence, the
+    reference's arithmetic step for step: q chunks of ``q_chunk`` rows,
+    each walking only the KV chunks its causal (and window) range needs.
+    Requires S % q_chunk == 0 and T % kv_chunk == 0 (after clamping each
+    chunk to the sequence); q/k positions are 0..S-1 and 0..T-1."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale or (1.0 / math.sqrt(D))
+    cq = min(q_chunk, S)
+    ck = min(kv_chunk, T)
+    if S % cq or T % ck:
+        raise ValueError(f"blockwise attention needs S % q_chunk == 0 and "
+                         f"T % kv_chunk == 0, got S={S}, q_chunk={cq}, "
+                         f"T={T}, kv_chunk={ck}")
+    dev = q.device
+    out = []
+    for i in range(S // cq):
+        q0 = i * cq
+        qi = _split_gqa(q[:, q0:q0 + cq], KH).to(torch.float32)
+        # the KV chunks this q chunk needs
+        hi = (q0 + cq + ck - 1) // ck if causal else T // ck
+        lo = max(0, (q0 - window + 1) // ck) if window is not None else 0
+        qpos = q0 + torch.arange(cq, device=dev)
+        m = torch.full((B, KH, G, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KH, G, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KH, G, cq, D), dtype=torch.float32, device=dev)
+        for j in range(lo, hi):
+            kc = k[:, j * ck:(j + 1) * ck].to(torch.float32)
+            vc = v[:, j * ck:(j + 1) * ck].to(torch.float32)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qi, kc) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            kpos = j * ck + torch.arange(ck, device=dev)
+            msk = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p, vc)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,KH,G,cq,D)
+        out.append(o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, D))
+    return torch.cat(out, dim=1).to(q.dtype)
 
 
 def prefill_attention(q, k_cache, v_cache, slot_pos, k_new, v_new,

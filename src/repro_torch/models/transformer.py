@@ -1,10 +1,12 @@
 """Dense transformer: init, chunked prefill and decode against a KV ring.
 
 Counterpart of ``repro.models.transformer`` for the dense llama family
-(RMSNorm, split-half RoPE, GQA, SwiGLU) and the gpt2 family (LayerNorm,
-learned positions, fused qkv with biases, GELU MLP). Parameters are a
-plain dict tree with the reference's paths and stacked layer axis; a
-weight may be a packed ``QTensor`` whose payloads carry that axis too.
+(RMSNorm, split-half RoPE, GQA, SwiGLU; optionally qk-norm, a sliding
+window and an LM head tied to the embedding) and the gpt2 family
+(LayerNorm, learned positions, fused qkv with biases, GELU MLP).
+Parameters are a plain dict tree with the reference's paths and stacked
+layer axis; a weight may be a packed ``QTensor`` whose payloads carry
+that axis too.
 The reference's layer ``scan`` is a Python loop over layers that indexes
 the stacked tensors.
 
@@ -33,13 +35,11 @@ _KV_FAMILIES = ("dense", "gpt2")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port has the dense llama family and gpt2, as the paper's three
-    models use them."""
+    """The port has the dense llama family and gpt2."""
     unported = [f for f, on in (
         (f"family {cfg.family!r}", cfg.family not in _KV_FAMILIES),
         (f"act {cfg.act!r}", cfg.act not in ("swiglu", "gelu")),
         (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned")),
-        ("qk_norm", cfg.qk_norm), ("tie_embeddings", cfg.tie_embeddings),
         ("kv_cache_quant", cfg.kv_cache_quant)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
@@ -89,6 +89,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 "wk": dense_init((Lc, d, KH * Dh), d),
                 "wv": dense_init((Lc, d, KH * Dh), d),
                 "wo": dense_init((Lc, H * Dh, d), H * Dh)}
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
+            attn["k_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
     if cfg.act == "gelu":
         mlp = {"c_fc": dense_init((Lc, d, f), d), "b_fc": zeros((Lc, f)),
                "c_proj": dense_init((Lc, f, d), f), "b_proj": zeros((Lc, d))}
@@ -99,7 +102,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     p["layers"] = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn,
                    "mlp": mlp}
     p["ln_f"] = norm_p(d, stacked=False)
-    p["lm_head"] = dense_init((d, V), d)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init((d, V), d)
     return p
 
 
@@ -142,6 +146,13 @@ def _mlp(m_in, lp, cfg: ModelConfig, impl):
 
 
 def _logits(params, cfg: ModelConfig, h, impl="auto"):
+    if cfg.tie_embeddings:
+        # the f32 product with the float embedding, as the reference's
+        # einsum (no packed head, no kernel, no calibration tap); ``.to``
+        # copies nothing where ``wte`` is f32 already
+        wte = params["wte"]
+        return torch.matmul(h.to(torch.float32),
+                            wte.to(torch.float32).t())
     CAL.tap("lm_head", h)
     return L.dense(h, params["lm_head"], impl=impl).to(torch.float32)
 
@@ -160,8 +171,12 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
         q = L.dense(a_in, attn["wq"], impl=impl)
         k = L.dense(a_in, attn["wk"], impl=impl)
         v = L.dense(a_in, attn["wv"], impl=impl)
-    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KH, Dh),
-            v.reshape(B, S, KH, Dh))
+    q, k = q.reshape(B, S, H, Dh), k.reshape(B, S, KH, Dh)
+    if cfg.qk_norm:
+        # per-head RMSNorm on q and k, before RoPE
+        q = L.rmsnorm(q, attn["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, attn["k_norm"], cfg.norm_eps)
+    return q, k, v.reshape(B, S, KH, Dh)
 
 
 def _attn_out(o, lp, cfg, impl):
@@ -394,9 +409,14 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
         return L.prefill_attn_fused(q, k, v, pos, pos,
                                     window=cfg.sliding_window,
                                     softcap=cfg.attn_logit_softcap)
-    raise NotImplementedError(
-        f"attention impl {impl!r} (S={S}) is not ported yet: the port has "
-        f"naive (S <= {NAIVE_MAX_SEQ} under 'auto') and fused")
+    if impl == "blockwise":
+        return L.blockwise_attention(q, k, v, causal=True,
+                                     window=cfg.sliding_window,
+                                     softcap=cfg.attn_logit_softcap,
+                                     q_chunk=cfg.attn_q_chunk,
+                                     kv_chunk=cfg.attn_kv_chunk)
+    raise ValueError(f"unknown attention impl {impl!r}; known: naive, "
+                     "blockwise, fused, auto")
 
 
 def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):

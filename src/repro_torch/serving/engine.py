@@ -1,8 +1,8 @@
 """Continuous-batching serving engine with batched chunked prefill.
 
-Counterpart of ``repro.serving.engine`` for this slice: greedy sampling,
-the dense KV-ring family, one device (``tp=1``). Its scheduling is the
-reference's:
+Counterpart of ``repro.serving.engine`` for this slice: greedy or
+temperature sampling, the dense KV-ring family, one device (``tp=1``).
+Its scheduling is the reference's:
 
 * ``batched chunked prefill``: at each chunk boundary the scheduler drains
   up to ``prefill_batch`` queued requests into the free slots at once,
@@ -28,9 +28,23 @@ every matmul computes each output row on its own (see
 ``kernels/bfp_matmul.py``). ``generate_reference`` keeps the host-driven
 loop (one step per token, same math) as the parity oracle.
 
+Temperature sampling is Gumbel-max, ``argmax(logits / T + g)``, which is
+how the reference's ``jax.random.categorical`` samples. The noise follows
+the reference's draw discipline over one stream of numbered draws: one
+(V,) draw per admitted request for its first token, in queue order
+(padding rows of a group consume none), then one (B, V) draw per decode
+step that has a live slot. Draw ``n`` comes from a generator on the
+engine's device seeded from (``seed``, n), so a decode chunk that runs
+past the step at which every slot died (the host sizes chunks without
+seeing EOS) consumes nothing: after the chunk's sync the host advances
+the count by the steps that had a live slot. JAX's threefry and torch's
+Philox differ, so the tokens are not the reference's; they equal this
+engine's own ``generate_reference`` and do not depend on
+``prefill_batch``.
+
 Not ported yet, and rejected at construction: speculative decoding
-(``drafter``), the prefix cache, tensor parallelism (``tp > 1``), SLO
-admission (``max_queue``, ``preempt``) and temperature sampling.
+(``drafter``), the prefix cache, tensor parallelism (``tp > 1``) and SLO
+admission (``max_queue``, ``preempt``).
 """
 from __future__ import annotations
 
@@ -50,7 +64,7 @@ from repro_torch.models import transformer as T
 @dataclasses.dataclass
 class ServeConfig:
     max_new_tokens: int = 32            # per-request default token budget
-    temperature: float = 0.0            # 0 -> greedy (the only mode ported)
+    temperature: float = 0.0            # <= 0 -> greedy
     eos_id: Optional[int] = None
     cache_len: int = 256                # KV ring length
     seed: int = 0
@@ -80,7 +94,20 @@ class ServeConfig:
 # features of the reference engine this port does not have yet, with the
 # value that leaves each one off
 _NOT_PORTED = {"drafter": None, "prefix_cache": False, "tp": 1,
-               "max_queue": 0, "preempt": False, "temperature": 0.0}
+               "max_queue": 0, "preempt": False}
+
+_M64 = (1 << 64) - 1
+
+
+def _draw_seed(seed: int, draw: int) -> int:
+    """The generator seed of draw ``draw`` of the stream seeded ``seed``:
+    splitmix64 of the pair, so every (seed, draw) starts its own Philox
+    stream."""
+    z = (((seed & 0xFFFFFFFF) << 32) | (draw & 0xFFFFFFFF))
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1             # torch seeds below 2**63
 
 
 @dataclasses.dataclass
@@ -117,8 +144,8 @@ class Engine:
             if getattr(serve_cfg, field) != off:
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(serve_cfg, field)!r} is "
-                    "not ported yet; this engine serves greedy, single-"
-                    f"device, without it (leave it at {off!r})")
+                    "not ported yet; this engine serves on one device "
+                    f"without it (leave it at {off!r})")
         T._check_family(cfg)
         self.cfg = cfg
         self.params = params
@@ -127,6 +154,7 @@ class Engine:
         self._T = T.attn_cache_len(cfg, serve_cfg.cache_len)
         self._chunk = max(1, min(serve_cfg.prefill_chunk, self._T))
         self._cache = None
+        self._gen = torch.Generator(device=self.device)
         self.stats: Dict[str, float] = {}
         self._reset()
 
@@ -153,10 +181,35 @@ class Engine:
         self.stats["prefill_forwards"] += 1
         return gcache, torch.where(sel[:, None], logits, last_logits)
 
-    @staticmethod
-    def _sample(logits):
-        """Greedy: logits (B, V) -> token ids (B,)."""
+    def _gumbel(self, draw: int, shape) -> torch.Tensor:
+        """Standard Gumbel noise of draw ``draw`` of this engine's stream."""
+        self._gen.manual_seed(_draw_seed(self.scfg.seed, draw))
+        u = torch.rand(shape, generator=self._gen, dtype=torch.float32,
+                       device=self.device)
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+    def _sample(self, logits, draw: int = 0):
+        """logits (B, V) -> token ids (B,): greedy ``argmax``, or under a
+        temperature ``argmax(logits / T + g)`` with ``g`` the Gumbel noise
+        of draw ``draw``."""
+        if self.scfg.temperature > 0:
+            logits = (logits / self.scfg.temperature
+                      + self._gumbel(draw, logits.shape))
         return torch.argmax(logits, dim=-1)
+
+    def _sample_first(self, last_logits, G: int):
+        """First tokens of a prefill group of ``G`` requests (and padding
+        rows past them): one (V,) draw per request, in queue order, as
+        one-at-a-time admission would take them."""
+        if self.scfg.temperature > 0:
+            noise = torch.zeros_like(last_logits)
+            for i in range(G):
+                noise[i] = self._gumbel(self._draw + i, last_logits.shape[1:])
+            self._draw += G
+            return torch.argmax(
+                last_logits / self.scfg.temperature + noise, dim=-1)
+        return self._sample(last_logits)
 
     def _bind_slots(self, first: np.ndarray, budgets: np.ndarray,
                     free_arr: np.ndarray) -> np.ndarray:
@@ -177,7 +230,8 @@ class Engine:
     def _decode_chunk_impl(self, tok, pos, live, n_gen, budget, steps):
         """Run ``steps`` decode steps on the device tensors (B,) and return
         (out (B, decode_chunk) with -1 where a slot was dead, tok, pos,
-        live, n_gen), all still on the device."""
+        live, n_gen), all still on the device. Step ``i`` samples with
+        draw ``self._draw + i``; the caller advances ``self._draw``."""
         C = self.scfg.decode_chunk
         B = tok.shape[0]
         out = torch.full((B, C), -1, dtype=torch.long, device=self.device)
@@ -186,7 +240,8 @@ class Engine:
                 self.params, self.cfg, self._cache, tokens=tok,
                 position=pos, live=live)
             self.stats["forwards"] += 1
-            nxt = torch.where(live, self._sample(logits), tok)
+            nxt = torch.where(live, self._sample(logits, self._draw + step),
+                              tok)
             out[:, step] = torch.where(live, nxt, torch.full_like(nxt, -1))
             n_gen = n_gen + live.to(n_gen.dtype)
             new_live = live & (n_gen < budget)
@@ -210,6 +265,7 @@ class Engine:
         self._ngen = np.zeros(B, np.int64)
         self._budget = np.full(B, self.scfg.max_new_tokens, np.int64)
         self._run_t0: Optional[float] = None
+        self._draw = 0                          # next draw of the stream
         self.stats = self._fresh_stats()
 
     @staticmethod
@@ -336,7 +392,7 @@ class Engine:
             gcache, last_logits = self._prefill_chunk_impl(
                 gcache, toks_d[:, start:start + C], start, lengths_d,
                 last_logits)
-        firsts = self._sample(last_logits).cpu().numpy()    # 1 sync / GROUP
+        firsts = self._sample_first(last_logits, G).cpu().numpy()  # 1 sync
         budgets = np.zeros(Gp, np.int64)            # dummies: 0 -> unbound
         budgets[:G] = [r.max_new_tokens for r in reqs]
         free_arr = np.full(Gp, self._B, np.int64)
@@ -388,6 +444,9 @@ class Engine:
         out, tok, pos, live, ngen = (t.cpu().numpy() for t in (
             out_d, tok_d, pos_d, live_d, ngen_d))           # THE chunk sync
         self._tok, self._pos, self._live, self._ngen = tok, pos, live, ngen
+        # the steps with a live slot drew noise; a step after every slot
+        # died (past an EOS the host could not see) did not
+        self._draw += int((out >= 0).any(axis=0).sum())
         self.stats["host_syncs"] += 1
         self.stats["chunks"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
@@ -488,7 +547,9 @@ class Engine:
                 self.params, self.cfg, self._cache, tokens=tok,
                 position=torch.as_tensor(self._pos, device=dev), live=live)
             self.stats["forwards"] += 1
-            nxt = torch.where(live, self._sample(logits), tok).cpu().numpy()
+            nxt = torch.where(live, self._sample(logits, self._draw),
+                              tok).cpu().numpy()
+            self._draw += 1
             self.stats["host_syncs"] += 1
             for i, req in enumerate(self._slots):
                 if req is None or not self._live[i]:

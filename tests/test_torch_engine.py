@@ -128,7 +128,7 @@ def test_budgets_eos_and_cancel(workload):
 
 @pytest.mark.parametrize("field,value", [("drafter", "ngram"),
                                          ("prefix_cache", True), ("tp", 2),
-                                         ("temperature", 0.7)])
+                                         ("max_queue", 4), ("preempt", True)])
 def test_unported_features_raise(workload, field, value):
     _, _, pqp, _ = workload
     with pytest.raises(NotImplementedError, match=field):

@@ -186,17 +186,26 @@ def test_forward_seq_matches_reference(model, mix, attn_impl):
     assert _rel(got.numpy(), ref) <= TOL_LOGITS
 
 
-def test_seq_attention_raises_beyond_naive(model):
+def test_seq_attention_raises_beyond_naive(model, monkeypatch):
     """Under "auto" a sequence above 2048 takes the reference's blockwise
-    path, which is not ported: the port raises, never runs naive."""
+    path (ported with slice 5), never naive, and agrees with naive to f32
+    order (1e-5); an unknown attention impl raises."""
     pcfg = model[1].replace(attn_impl="auto")
-    q = torch.zeros(1, 4, 4, 64)
-    k = torch.zeros(1, 4, 2, 64)
-    assert PT._seq_attention(q, k, k, pcfg, 2048).shape == q.shape
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        PT._seq_attention(q, k, k, pcfg, 2049)
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        PT._seq_attention(q, k, k, pcfg.replace(attn_impl="blockwise"), 4)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 4, 64, generator=g)
+    k = torch.randn(1, 4, 2, 64, generator=g)
+    naive = PT._seq_attention(q, k, k, pcfg, 2048)
+    assert naive.shape == q.shape
+    taken = []
+    blockwise = PT.L.blockwise_attention
+    monkeypatch.setattr(PT.L, "blockwise_attention", lambda *a, **kw: (
+        taken.append(1) or blockwise(*a, **kw)))
+    assert _rel(PT._seq_attention(q, k, k, pcfg, 2049), naive) <= 1e-5
+    assert taken == [1]
+    PT._seq_attention(q, k, k, pcfg.replace(attn_impl="blockwise"), 4)
+    assert taken == [1, 1]
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        PT._seq_attention(q, k, k, pcfg.replace(attn_impl="flash"), 4)
 
 
 def test_quantize_params_calib_q3_k_o_matches_reference(model, stats):
