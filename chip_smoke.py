@@ -123,6 +123,39 @@ Phases, each of which exits nonzero on failure:
    (launch counts zeroed just before and read just after: 32 + 80); its
    logits at the last 16 positions against ``attn_impl="naive"`` at
    ``TOL_LONG``.
+17. int8 KV, slice 6: path 1's traffic on an int8 KV ring
+   (``kv_cache_quant=True``): 45 q2_k + 110 q3_k launches a forward,
+   run() equals generate_reference; ``_quantize_kv`` on the card equals
+   the CPU byte for byte on a seeded (4, 4, 64) f32 and bf16 input with
+   an all-zero row; decode and prefill tok/s beside the bf16 ring's.
+18. prefix cache, slice 6: extended_mix with ``attn_impl="fused"``, 8
+   requests of one seeded 384-token shared prefix plus seeded 16-128-token
+   suffixes, 32 new tokens, 4 slots, 128-token chunks, a 1024-slot ring,
+   16-position pages, a 64 MiB pool (186 pages); one engine with the
+   cache off, one with it on run twice on the same prompts. All three
+   give the same tokens; every forward launches 110 q3_k + 44 q4_k + 1
+   q6_k and every prefill-chunk forward 22 attention kernels;
+   ``prefix_hits`` is at least 4, then 8. The 22 attention launches of a
+   warm chunk (prefix rows scattered from the pool) are held against the
+   plain version and timed.
+19. speculative decoding, slice 6: path 1's weights, 8 requests of
+   6-token prompts, 32 new tokens, 4 slots, ``decode_chunk=16``,
+   ``cache_len=64``, ``draft_k=4``: ngram/scan, ngram/batched and
+   self (2 layers)/scan, greedy. Scan runs' tokens equal a plain engine's
+   and every verify column is a 155-launch forward; the batched run
+   launches 155 kernels a round, all at M = 20, and meets the margin rule;
+   the self drafter launches 5 q2_k + 10 q3_k a draft step. At
+   temperature 0.8, seed 7 (ngram/scan) run() equals
+   generate_spec_reference; an int8 ring with ngram/scan on phase 17's
+   traffic gives phase 17's tokens. The q2_k and q3_k launches of one
+   batched-verify forward (M = 20) are timed as phase 4 times them.
+20. SLO admission, slice 6: path 1's weights, ``preempt=True``,
+   ``max_queue=2``, two-step decode chunks: four priority-0 requests fill
+   the slots, a poll callback submits a priority-1 request, which
+   preempts one of them (it keeps its streamed tokens and gets
+   ``on_done`` once) and completes; with the slots full and two requests
+   queued, a further submit raises ``EngineSaturated("queue_full")``.
+   Phases 17-20 each print their wall time.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -213,6 +246,22 @@ LONG5 = ("llama3.2-1b", 4096, 16)   # arch, S, last positions compared
 # rounding of an attention output can flip by one step (2**-8) and move
 # the next layers' inputs; 8 such steps across 16 layers
 TOL_LONG = 2.0 ** -5
+# slice 6: the engine's int8 KV ring, prefix cache, speculative decoding
+# and SLO admission on full-width tinyllama-1.1b
+KV8_PER_FORWARD = {"q2_k": 45, "q3_k": 110}         # paper_llama_mix
+EXTENDED_PER_FORWARD = {"q3_k": 110, "q4_k": 44, "q6_k": 1}
+SERVE_PREFIX = dict(SERVE2, prefill_bucket=16, prefix_page=16,
+                    prefix_bytes=64 << 20)
+SHARED_PREFIX, SUFFIX_RANGE = 384, (16, 128)
+PREFIX_CAPACITY = 186           # 64 MiB over 22 x 16 x 4 x 64 x 2 B x (k, v)
+SERVE_SPEC = dict(max_new_tokens=32, max_slots=4, decode_chunk=16,
+                  cache_len=64, prefill_batch=4, prefill_chunk=16,
+                  prefill_bucket=16, draft_k=4)
+M_VERIFY = SERVE_SPEC["max_slots"] * (SERVE_SPEC["draft_k"] + 1)   # 20
+DRAFT_LAYERS = 2
+SELF_PER_DRAFT = {"q2_k": 5, "q3_k": 10}    # 2 layers' wk, wv + the head
+SERVE_SLO = dict(SERVE, decode_chunk=2, preempt=True, max_queue=2)
+MARGIN_TOL = 0.1        # ROADMAP's parity contract (test_torch_engine.py)
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -599,11 +648,11 @@ def _timing(ms, plain_ms, library_ms, nbytes, flops, launches,
 
 
 def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
-                 big="prefill", head_m=M_DECODE):
-    """Per variant, one forward's launches at decode M and at ``m_prefill``
-    (the phase named ``big``: a prefill chunk, where the LM head runs on
-    ``head_m`` gathered rows, or a search evaluation, where it runs on
-    every row)."""
+                 big="prefill", head_m=M_DECODE, decode=True):
+    """Per variant, one forward's launches at decode M (unless ``decode``
+    is False) and at ``m_prefill`` (the phase named ``big``: a prefill
+    chunk, where the LM head runs on ``head_m`` gathered rows, or a search
+    evaluation or a batched verify, where it runs on every row)."""
     layers = qp["layers"]
     mats = {v: [] for v in variants}
     for blk, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
@@ -620,8 +669,8 @@ def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
     for variant, ws in mats.items():
         dense = [Q.dequantize(t, torch.bfloat16) for t, _ in ws]
         res = {}
-        for phase, M, mh in (("decode", M_DECODE, M_DECODE),
-                             (big, m_prefill, head_m)):
+        for phase, M, mh in ((("decode", M_DECODE, M_DECODE),) * decode
+                             + ((big, m_prefill, head_m),)):
             ms_ = [mh if head else M for _, head in ws]
             xs = {(m, t.shape[0]): torch.randn(
                 m, t.shape[0], generator=g, device=dev).bfloat16()
@@ -652,12 +701,23 @@ def phase_timing(torch, qp, cfg, PB, Q, dev, tag, variants, m_prefill,
     return out
 
 
+def _sdpa_ms(torch, jobs):
+    """The attention's yardstick: one ``scaled_dot_product_attention``
+    call a job (q, k, v, q_pos, kv_pos) on the same inputs, heads first,
+    with the equivalent boolean mask (never called by the port)."""
+    import torch.nn.functional as Fn
+    sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             visible_rows(qp, kp, None)[:, None])
+            for q, k, v, qp, kp in jobs]
+    return _device_ms(torch, lambda: [Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=True) for q, k, v, m in sdpa], 10)
+
+
 def phase_attn_timing(torch, PA, n_layers, dev):
     """The 22 attention launches of one prefill-chunk forward at the
     serving shape: the third 128-token chunk of a 512-token prompt (the
     ring holds positions 0..255), different K/V per layer as the ring
     has, so the 22 calls stream their K/V from HBM and not the 50 MB L2."""
-    import torch.nn.functional as Fn
     g = torch.Generator(device=dev).manual_seed(6)
     B, C, H, KH, D, T_ring = ATTN_SERVE
     jobs = [attn_inputs(torch, dev, B, C, H, KH, D, T_ring, 256,
@@ -666,13 +726,7 @@ def phase_attn_timing(torch, PA, n_layers, dev):
                                       for j in jobs], 10)
     plain = _device_ms(torch, lambda: [PA.prefill_attn_plain(*j)
                                        for j in jobs], 3)
-    # the yardstick: one SDPA call per layer on the same inputs, heads
-    # first, with the equivalent boolean mask (never called by the port)
-    sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-             visible_rows(qp, kp, None)[:, None])
-            for q, k, v, qp, kp in jobs]
-    lib = _device_ms(torch, lambda: [Fn.scaled_dot_product_attention(
-        q, k, v, attn_mask=m, enable_gqa=True) for q, k, v, m in sdpa], 10)
+    lib = _sdpa_ms(torch, jobs)
     # the bytes this data needs: q, the bf16 out and both position
     # vectors in full, K and V only at the slots some query of the batch
     # row can see (the empty ring slots are never read)
@@ -1188,6 +1242,391 @@ def phase_long(torch, cfg, qp, prompts, per_forward, T, PB, dev):
     return launches
 
 
+def _engine_rates(s):
+    return (f"prefill {s['prefill_tok_per_s']:.1f} tok/s, decode "
+            f"{s['tok_per_s']:.1f} tok/s")
+
+
+def _served(torch, eng, prompts, PB, reset=None, warm=True):
+    """A warm-up (unless ``warm`` is False), then ``eng.generate(prompts)``
+    with the matmul launch counts (and ``reset``, if given) zeroed just
+    before and read just after: (tokens, stats, launches, wall s)."""
+    if warm:
+        eng.generate(prompts[:eng.scfg.max_slots])
+    torch.cuda.synchronize()
+    PB.reset_launches()
+    if reset is not None:
+        reset()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, dict(eng.stats), dict(PB.launches), wall
+
+
+def _check_launches(tag, PB, launches, stats, per_forward, per_draft=None):
+    """Every forward (prefill chunk, decode step, scan-verify column or
+    batched-verify round) launches ``per_forward`` matmul kernels a
+    variant, every truncated draft step ``per_draft``."""
+    fwd, dfwd = stats["forwards"], stats["draft_forwards"]
+    want = {v: per_forward.get(v, 0) * fwd
+            + (per_draft or {}).get(v, 0) * dfwd for v in PB.VARIANTS}
+    print(f"[{tag}] kernel launches: {launches} over {fwd} forwards and "
+          f"{dfwd} draft steps", flush=True)
+    check(fwd > 0 and launches == want,
+          f"{tag}: expected {per_forward} launches a forward and "
+          f"{per_draft} a draft step, got {launches} over {fwd} forwards "
+          f"and {dfwd} draft steps")
+
+
+def phase_kv8(torch, cfg, qp, prompts, T, Engine, ServeConfig, PB, PA,
+              dev):
+    """Phase 17: path 1's traffic on an int8 KV ring; returns (launches,
+    tokens, rates)."""
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(4, 4, 64, generator=g) * 3).to(dtype)
+        x[1, 2] = 0                                 # an all-zero row
+        q_cpu, s_cpu = T._quantize_kv(x)
+        q_gpu, s_gpu = T._quantize_kv(x.to(dev))
+        same = (_bytes_equal(torch, q_gpu.cpu(), q_cpu)
+                and _bytes_equal(torch, s_gpu.cpu(), s_cpu))
+        print(f"[kv8] _quantize_kv {tuple(x.shape)} {dtype} on the card == "
+              f"the CPU byte for byte: {same}", flush=True)
+        check(same, f"_quantize_kv on the card differs from the CPU "
+                    f"({dtype})")
+    cfg8 = cfg.replace(kv_cache_quant=True)
+    launches, _, s8 = phase_serve(
+        torch, cfg8, qp, Engine, ServeConfig, PB, PA, T, dev, "kv8", SERVE,
+        prompts, KV8_PER_FORWARD, 0)
+    tokens = Engine(cfg8, qp, ServeConfig(**SERVE), device=dev).generate(
+        prompts)
+    eng = Engine(cfg, qp, ServeConfig(**SERVE), device=dev)
+    _, sb, _, _ = _served(torch, eng, prompts, PB)
+    rates = {"int8": {"prefill_tok_per_s": s8["prefill_tok_per_s"],
+                      "decode_tok_per_s": s8["tok_per_s"]},
+             "bf16": {"prefill_tok_per_s": sb["prefill_tok_per_s"],
+                      "decode_tok_per_s": sb["tok_per_s"]}}
+    print(f"[kv8] int8 ring: {_engine_rates(s8)}; bf16 ring: "
+          f"{_engine_rates(sb)} (host clocks)", flush=True)
+    print(f"[kv8] phase 17 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, tokens, rates
+
+
+def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev):
+    """Phase 18: a shared-prefix queue under extended_mix with the fused
+    attention, cache off, then on twice; the warm chunks' attention
+    launches held against the plain version and timed. Returns (matmul
+    launches, attention launches, stats, attention timing)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
+    prompts = [shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(n))]
+        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
+                              N_REQUESTS)]
+    off = Engine(cfg, qp, ServeConfig(**SERVE_PREFIX), device=dev)
+    res_off, s_off, _, _ = _served(torch, off, prompts, PB)
+    on = Engine(cfg, qp, ServeConfig(**SERVE_PREFIX, prefix_cache=True),
+                device=dev)
+    check(on._prefix.capacity == PREFIX_CAPACITY,
+          f"page pool of {on._prefix.capacity} pages, expected "
+          f"{PREFIX_CAPACITY}")
+    runs = []
+    launches, attn = {v: 0 for v in PB.VARIANTS}, 0
+    for i in range(2):
+        PB.reset_launches()
+        PA.reset_launches()
+        torch.cuda.synchronize()
+        res = on.generate(prompts)
+        torch.cuda.synchronize()
+        s = dict(on.stats)
+        runs.append((res, s))
+        lw, aw = dict(PB.launches), PA.launches["prefill_attn"]
+        _check_launches(f"prefix run {i + 1}", PB, lw, s,
+                        EXTENDED_PER_FORWARD)
+        check(aw == cfg.n_layers * s["prefill_forwards"],
+              f"prefix run {i + 1}: {aw} attention launches over "
+              f"{s['prefill_forwards']} prefill-chunk forwards")
+        launches = {v: launches[v] + lw[v] for v in PB.VARIANTS}
+        attn += aw
+        print(f"[prefix] run {i + 1}: {_engine_rates(s)}, "
+              f"prefix_hits {s['prefix_hits']}, prefix_tokens_reused "
+              f"{s['prefix_tokens_reused']} of {s['prefill_tokens']} prompt "
+              f"tokens, {s['prefill_forwards']} prefill-chunk forwards, "
+              f"evictions {s['prefix_evictions']}, insert drops "
+              f"{s['prefix_insert_drops']}", flush=True)
+    print(f"[prefix] cache off: {_engine_rates(s_off)}, "
+          f"{s_off['prefill_forwards']} prefill-chunk forwards", flush=True)
+    check(runs[0][0] == res_off and runs[1][0] == res_off,
+          "prefix cache: tokens differ from the cache-off engine")
+    check(runs[0][1]["prefix_hits"] >= 4 and runs[1][1]["prefix_hits"] == 8,
+          "prefix cache: too few hits")
+    check(all(len(t) == SERVE_PREFIX["max_new_tokens"] for t in res_off),
+          "prefix cache: a request did not get its tokens")
+
+    # the warm chunks' attention: record one warm admission's launches,
+    # hold each against the plain version, time the 22 of one chunk
+    jobs = []
+    orig = PA.prefill_attn_cuda
+
+    def record(*a, **kw):
+        jobs.append((a, kw))
+        return orig(*a, **kw)
+    PA.prefill_attn_cuda = record
+    try:
+        on.generate(prompts[:SERVE_PREFIX["max_slots"]])
+    finally:
+        PA.prefill_attn_cuda = orig
+    torch.cuda.synchronize()
+    chunk = jobs[:cfg.n_layers]
+    worst = 0.0
+    for (q, k, v, qp_, kp), kw in chunk:
+        y = orig(q, k, v, qp_, kp, **kw)
+        ref = PA.prefill_attn_plain(q, k, v, qp_, kp, **kw)
+        vis = visible_rows(qp_, kp, kw.get("window")).any(-1)
+        worst = max(worst, rel_err(y[vis], ref[vis]))
+    (q, k, v, qp_, kp), _ = chunk[0]
+    print(f"[prefix] warm chunk attention {tuple(q.shape)} x T={k.shape[1]} "
+          f"{q.dtype} (ring rows from the page pool, {int((kp[0] >= 0).sum())}"
+          f" keys visible to row 0): kernel vs plain rel {worst:.2e} (tol "
+          f"{TOL_BF16:.1e})", flush=True)
+    check(worst <= TOL_BF16, "prefill_attn on a warm chunk disagrees")
+    kern = _device_ms(torch, lambda: [orig(*a, **kw) for a, kw in chunk],
+                      10)
+    plain = _device_ms(torch, lambda: [PA.prefill_attn_plain(*a, **kw)
+                                       for a, kw in chunk], 3)
+    lib = _sdpa_ms(torch, [a for a, _ in chunk])
+    nbytes = sum(2 * a[0].numel() * a[0].element_size()
+                 + (a[3].numel() + a[4].numel()) * a[4].element_size()
+                 + 2 * int(visible_rows(a[3], a[4], None).any(1).sum())
+                 * a[1].shape[2] * a[1].shape[3] * a[1].element_size()
+                 for a, _ in chunk)
+    pairs = sum(int(visible_rows(a[3], a[4], None).sum()) for a, _ in chunk)
+    flops = pairs * q.shape[2] * 4 * q.shape[3]
+    timing = _timing(kern, plain, lib, nbytes, flops, len(chunk))
+    print(f"[prefix] prefill_attn warm prefill-chunk forward ({len(chunk)} "
+          f"launches): kernel {kern:.3f} ms, bound {timing['bound_ms']:.4f} "
+          f"ms ({timing['bound_by']}, {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP), plain {plain:.3f} ms, "
+          f"scaled_dot_product_attention {lib:.3f} ms; x lib "
+          f"{kern / lib:.2f}", flush=True)
+    timing["max_rel_err"] = worst
+    stats = {"off": s_off, "cold": runs[0][1], "warm": runs[1][1]}
+    print(f"[prefix] phase 18 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, attn, stats, timing
+
+
+def _margin_match(torch, T, qp, cfg, dev, refs, gots, prompts):
+    """Token for token, or a divergence where the plain model's top-2
+    logit margin predicting that token is below MARGIN_TOL (ROADMAP's
+    parity contract); returns the number of accepted divergences."""
+    ties = 0
+    for prompt, ref, got in zip(prompts, refs, gots):
+        t = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                 None)
+        if t is None:
+            check(len(ref) == len(got), "verify: lengths differ")
+            continue
+        logits = T.forward_seq(qp, cfg, tokens=torch.tensor(
+            [prompt + ref[:t]], device=dev))[0, -1]
+        top = torch.topk(logits, 2).values
+        margin = float(top[0] - top[1])
+        check(margin < MARGIN_TOL, f"verify: divergence at token {t} with "
+                                   f"margin {margin}")
+        ties += 1
+    return ties
+
+
+def phase_spec(torch, cfg, qp, prompts, kv8_tokens, T, Engine, ServeConfig,
+               PB, Q, ops, dev):
+    """Phase 19: speculative decoding on path 1's weights; returns
+    (launches by run, stats by run, verify-M timing)."""
+    t_phase = time.perf_counter()
+    plain_eng = Engine(cfg, qp, ServeConfig(**SERVE_SPEC), device=dev)
+    ref, s_plain, _, _ = _served(torch, plain_eng, prompts, PB)
+    print(f"[spec] plain: {_engine_rates(s_plain)}, "
+          f"{s_plain['forwards']} forwards", flush=True)
+    launches, stats = {}, {"plain": s_plain}
+    S = SERVE_SPEC["draft_k"] + 1
+    for name, kw in (("ngram_scan", dict(drafter="ngram")),
+                     ("ngram_batched", dict(drafter="ngram",
+                                            draft_verify="batched")),
+                     ("self_scan", dict(drafter="self",
+                                        draft_layers=DRAFT_LAYERS))):
+        eng = Engine(cfg, qp, ServeConfig(**SERVE_SPEC, **kw), device=dev)
+        ms = {}
+        orig = ops.bfp_matmul_cuda
+
+        def record(x, *a, **k):
+            ms[x.shape[0]] = ms.get(x.shape[0], 0) + 1
+            return orig(x, *a, **k)
+        ops.bfp_matmul_cuda = record
+        try:
+            # the plain run above warmed the kernels and the allocator
+            res, s, lw, wall = _served(torch, eng, prompts, PB,
+                                       reset=ms.clear, warm=False)
+        finally:
+            ops.bfp_matmul_cuda = orig
+        rounds = s["spec_rounds"]
+        verify = s["forwards"] - s["prefill_forwards"]
+        print(f"[spec] {name}: {_engine_rates(s)} (plain "
+              f"{s_plain['tok_per_s']:.1f}), draft_tokens "
+              f"{s['draft_tokens']}, draft_accepted {s['draft_accepted']} "
+              f"(accept rate {s['accept_rate']:.1%}), spec_rounds {rounds}, "
+              f"{verify} verify forwards, {s['draft_forwards']} draft "
+              f"steps, {s['host_syncs']} host syncs, wall {wall:.3f}s; "
+              f"matmul launches by M {dict(sorted(ms.items()))}", flush=True)
+        _check_launches(f"spec {name}", PB, lw, s, KV8_PER_FORWARD,
+                        SELF_PER_DRAFT if kw["drafter"] == "self" else None)
+        check(rounds > 0 and s["draft_tokens"] > 0, f"{name}: no speculation")
+        if kw.get("draft_verify") == "batched":
+            check(verify == rounds, f"{name}: {verify} verify forwards over "
+                                    f"{rounds} rounds")
+            check(ms.get(M_VERIFY, 0) == sum(KV8_PER_FORWARD.values())
+                  * rounds, f"{name}: {ms.get(M_VERIFY, 0)} launches at "
+                            f"M={M_VERIFY} over {rounds} rounds")
+            ties = _margin_match(torch, T, qp, cfg, dev, ref, res, prompts)
+            print(f"[spec] {name}: tokens == plain but {ties} divergence(s) "
+                  f"at a top-2 margin below {MARGIN_TOL}", flush=True)
+        else:
+            check(verify == S * rounds, f"{name}: {verify} verify columns "
+                                        f"over {rounds} rounds")
+            check(res == ref, f"{name}: tokens differ from plain decode")
+            print(f"[spec] {name}: tokens == plain decode: True", flush=True)
+        if kw["drafter"] == "self":
+            check(s["draft_forwards"] == SERVE_SPEC["draft_k"] * rounds,
+                  f"{name}: {s['draft_forwards']} draft steps over "
+                  f"{rounds} rounds")
+        launches[name], stats[name] = lw, s
+
+    few = prompts[:SERVE_SPEC["max_slots"]]
+    temp = Engine(cfg, qp, ServeConfig(**SERVE_SPEC, **TEMP5,
+                                       drafter="ngram"), device=dev)
+    a = temp.generate(few)
+    b = temp.generate_spec_reference(few)
+    print(f"[spec] ngram_scan T={TEMP5['temperature']} seed {TEMP5['seed']}:"
+          f" run() {a}; generate_spec_reference equal {a == b}", flush=True)
+    check(a == b, "spec temperature: run() != generate_spec_reference")
+    check(a != ref[:len(few)], "spec temperature gave the greedy tokens")
+
+    kv8 = Engine(cfg.replace(kv_cache_quant=True), qp,
+                 ServeConfig(**SERVE, drafter="ngram",
+                             draft_k=SERVE_SPEC["draft_k"]), device=dev)
+    got = kv8.generate(prompts)
+    print(f"[spec] int8 ring, ngram_scan on path 1's traffic: tokens == "
+          f"phase 17's: {got == kv8_tokens} ({kv8.stats['spec_rounds']} "
+          f"rounds)", flush=True)
+    check(got == kv8_tokens, "int8 + ngram: tokens differ from phase 17's")
+    timing = phase_timing(torch, qp, cfg, PB, Q, dev, "spec", ("q2_k",
+                                                               "q3_k"),
+                          M_VERIFY, big="verify", head_m=M_VERIFY,
+                          decode=False)
+    print(f"[spec] phase 19 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, stats, timing
+
+
+def phase_slo(torch, cfg, qp, prompts, Engine, ServeConfig,
+              EngineSaturated, PB, dev):
+    """Phase 20: four priority-0 requests fill the slots (two at a time:
+    the queue holds two); a poll callback then submits a priority-1
+    request, which preempts one of them, and, with the slots full again,
+    two more priority-0 requests fill the queue and a third is rejected.
+    Returns the launches."""
+    t_phase = time.perf_counter()
+    eng = Engine(cfg, qp, ServeConfig(**SERVE_SLO), device=dev)
+    streamed, done, reasons = {}, {}, []
+    on_token = lambda rid, tok: streamed.setdefault(rid, []).append(tok)
+    on_done = lambda r: done.setdefault(r.id, []).append(
+        (r.cancelled, r.preempted))
+    submit = lambda p, **kw: eng.submit(p, on_token=on_token,
+                                        on_done=on_done, **kw)
+    low = [submit(p) for p in prompts[:2]]
+    late, polls = [], [0]
+
+    def poll():
+        polls[0] += 1
+        if polls[0] == 2:
+            low.extend(submit(p) for p in prompts[2:4])
+        if polls[0] in (3, 4):
+            check(all(r is not None for r in eng._slots),
+                  f"slo: the slots are not full at poll {polls[0]}")
+        if polls[0] == 3:
+            late.append(submit(prompts[4], priority=1))
+        if polls[0] == 4:
+            late.extend(submit(p) for p in prompts[5:7])
+            try:
+                submit(prompts[7])
+            except EngineSaturated as e:
+                reasons.append(e.reason)
+    PB.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(poll=poll)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats
+    pre = [rid for rid, d in done.items() if d[0][1]]
+    budget = SERVE_SLO["max_new_tokens"]
+    print(f"[slo] {len(res)} requests in {wall:.3f}s: preempted {pre}, "
+          f"tokens {[len(res[r]) for r in low + late]}, preemptions "
+          f"{s['preemptions']}, rejections {reasons}, on_done calls "
+          f"{ {r: len(d) for r, d in done.items()} }", flush=True)
+    check(pre == [low[-1]] and s["preemptions"] == 1,
+          f"slo: expected request {low[-1]} preempted, got {pre}")
+    check(res[pre[0]] == streamed[pre[0]] and 0 < len(res[pre[0]]) < budget,
+          "slo: the preempted request lost its streamed tokens")
+    check(all(len(d) == 1 for d in done.values())
+          and sorted(done) == sorted(low + late),
+          "slo: on_done did not fire once per request")
+    check(len(res[late[0]]) == budget and not done[late[0]][0][0],
+          "slo: the priority-1 request did not complete")
+    check(all(len(res[r]) == budget for r in low[:3] + late[1:]),
+          "slo: a request lost tokens")
+    check(reasons == ["queue_full"], f"slo: rejections {reasons}")
+    launches = dict(PB.launches)
+    _check_launches("slo", PB, launches, s, KV8_PER_FORWARD)
+    print(f"[slo] phase 20 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches
+
+
+def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
+                 get_policy, Engine, ServeConfig, EngineSaturated, PB, PA, Q,
+                 ops, dev):
+    """Phases 17-20 on full-width tinyllama-1.1b. Returns (matmul launches
+    by path, attention launches by path, results for the kernels line)."""
+    launches, attn, out = {}, {}, {}
+    qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                         get_policy, "paper_llama_mix", dev, KV8_PER_FORWARD)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
+               for _ in range(N_REQUESTS)]
+    launches["kv8_serve"], kv8_tokens, out["kv8"] = phase_kv8(
+        torch, cfg, qp, prompts, T, Engine, ServeConfig, PB, PA, dev)
+    spec_launches, out["spec"], out["verify_timing"] = phase_spec(
+        torch, cfg, qp, prompts, kv8_tokens, T, Engine, ServeConfig, PB, Q,
+        ops, dev)
+    launches.update({f"spec_{k}": v for k, v in spec_launches.items()})
+    launches["slo"] = phase_slo(torch, cfg, qp, prompts, Engine,
+                                ServeConfig, EngineSaturated, PB, dev)
+    del qp
+    torch.cuda.empty_cache()
+    cfg2 = cfg.replace(attn_impl="fused")
+    qp = pack_full_width(torch, cfg2, T, quantize_params, variant_counts,
+                         get_policy, "extended_mix", dev,
+                         EXTENDED_PER_FORWARD)
+    (launches["prefix_cache"], attn["prefix_cache"], out["prefix"],
+     out["warm_attn_timing"]) = phase_prefix(
+        torch, np, cfg2, qp, Engine, ServeConfig, PB, PA, dev)
+    del qp
+    torch.cuda.empty_cache()
+    return launches, attn, out
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -1212,7 +1651,8 @@ def main() -> None:
     from repro_torch.kernels import q8k_quant as PK
     from repro_torch.launch.serve import resolve_policy
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.engine import (Engine, EngineSaturated,
+                                            ServeConfig)
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1323,6 +1763,11 @@ def main() -> None:
         torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
         Engine, ServeConfig, PB, PA, Q, dev)
 
+    # slice 6: int8 KV, speculative decoding, SLO admission, prefix cache
+    launches6, attn6, slice6 = phase_slice6(
+        torch, np, cfg, T, quantize_params, variant_counts, get_policy,
+        Engine, ServeConfig, EngineSaturated, PB, PA, Q, ops, dev)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1335,7 +1780,8 @@ def main() -> None:
                    "policy_auto_searched_serve": launches3s[v],
                    "policy_auto_hand_mix_serve": launches3l[v],
                    **{f"{a}_serve": launches4[a][v] for a in launches4},
-                   **{p: launches5[p][v] for p in launches5}}
+                   **{p: launches5[p][v] for p in launches5},
+                   **{p: launches6[p][v] for p in launches6}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -1354,6 +1800,9 @@ def main() -> None:
             kernels[-1]["extended_mix"] = timing2[v]
         if v in timing5:
             kernels[-1][f"{TIMED5}_decode_shapes"] = timing5[v]
+        if v in slice6["verify_timing"]:
+            kernels[-1]["batched_verify"] = slice6["verify_timing"][v][
+                "verify"]
         if v == "q2_k":
             kernels[-1]["gpt2_head_n50257"] = head_timing
             kernels[-1]["max_abs_err_n50257"] = max_abs["q2_k_n50257"]
@@ -1361,16 +1810,18 @@ def main() -> None:
         "name": "prefill_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/prefill_attn.cu",
         "replaces": "src/repro/kernels/prefill_attn.py:80",
-        "launches": attn1 + attn2 + sum(attn5.values()),
+        "launches": attn1 + attn2 + sum(attn5.values())
+        + sum(attn6.values()),
         "launches_by_path": {"paper_llama_mix": attn1,
-                             "extended_mix_fused": attn2, **attn5},
+                             "extended_mix_fused": attn2, **attn5, **attn6},
         "max_abs_err": max_abs["prefill_attn"],
         "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],
         "bound_by": attn_timing["bound_by"],
         "library_ms": attn_timing["library_ms"],
         "per": "the launches of one prefill-chunk forward (22 layers)",
-        "bytes": attn_timing["bytes"], "flops": attn_timing["flops"]})
+        "bytes": attn_timing["bytes"], "flops": attn_timing["flops"],
+        "warm_prefix_chunk": slice6["warm_attn_timing"]})
     q8k = q8k_timing["forward"]
     kernels.append({
         "name": "q8k_quantize", "route": "cuda",
@@ -1390,6 +1841,8 @@ def main() -> None:
         "bytes": q8k["bytes"], "single_4096x5632": q8k_timing["single"]})
     print(f"[integer] summary: {json.dumps(integer)}", flush=True)
     print(f"[search] summary: {json.dumps(search)}", flush=True)
+    summary6 = {k: slice6[k] for k in ("kv8", "spec", "prefix")}
+    print(f"[slice6] summary: {json.dumps(summary6)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -81,7 +81,7 @@ class ModelConfig:
     scan_unroll: bool = False
     ssd_unroll: bool = True
     loss_chunk: int = 2048
-    kv_cache_quant: bool = False    # int8 KV cache (not ported yet)
+    kv_cache_quant: bool = False    # int8 KV cache
     subquadratic: bool = False
 
     def __post_init__(self):

@@ -14,6 +14,10 @@ queue of requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --policy paper_llama_mix --temperature 0.8 --seed 7 --stream
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy paper_llama_mix --tokens 32 --drafter ngram --draft-k 4 \
+      --prefix-cache --shared-prefix 64 --max-queue 16 --preempt
+
 ``--policy auto`` loads the searched policy file ``--policy-json`` if it
 exists (recalibrating first when a rule asks for q3_k_o, whose outlier
 rows follow the activation stats) and otherwise runs the policy search
@@ -25,11 +29,17 @@ qwen3-1.7b, phi3-mini-3.8b, h2o-danube-1.8b, tinyllama-1.1b,
 mobilellama-1.4b) and gpt2-paper. ``--temperature T`` samples (0, the
 default, is greedy), ``--eos-id`` ends a request at that token,
 ``--stream`` prints each token as it is emitted and ``--no-quant`` serves
-the float weights (plain ``torch.matmul``, no kernel). The weights, the
-prompts and the sampling stream are random, drawn from ``--seed``
-(default 0). The model runs on the GPU (``--device cuda``, the default;
-it raises where there is none). Add ``--reduced --device cpu`` for a
-small run on the CPU through the kernel's plain PyTorch version.
+the float weights (plain ``torch.matmul``, no kernel). ``--drafter``
+(``ngram`` or ``self``) turns on speculative decoding (``--draft-k``,
+``--draft-layers``, ``--draft-ngram``, ``--draft-verify``),
+``--prefix-cache`` the prefix cache (``--prefix-page``,
+``--prefix-bytes``; ``--shared-prefix N`` prepends N shared tokens to
+every prompt, the workload it serves), and ``--max-queue``/``--preempt``
+SLO admission; the stats line then reports acceptance and prefix reuse.
+The weights, the prompts and the sampling stream are random, drawn from
+``--seed`` (default 0). The model runs on the GPU (``--device cuda``, the
+default; it raises where there is none). Add ``--reduced --device cpu``
+for a small run on the CPU through the kernel's plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -127,6 +137,40 @@ def main(argv=None):
                     help="seeds the weights, the prompts and the sampling")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are emitted")
+    ap.add_argument("--drafter", default=None, choices=("ngram", "self"),
+                    help="enable speculative decoding with this drafter "
+                         "(greedy output stays plain decode's)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="drafted tokens per verify round")
+    ap.add_argument("--draft-layers", type=int, default=2,
+                    help="self-drafter: how many leading layers of the "
+                         "model draft (same packed weights)")
+    ap.add_argument("--draft-ngram", type=int, default=2,
+                    help="ngram drafter: match gram length")
+    ap.add_argument("--draft-verify", default="scan",
+                    choices=("scan", "batched"),
+                    help="verify datapath: 'scan' gives plain decode's "
+                         "logits bit for bit, 'batched' scores the whole "
+                         "draft block in one masked forward")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the prefix cache: admission reuses the "
+                         "longest cached token prefix and prefills only "
+                         "the suffix (greedy output stays the same)")
+    ap.add_argument("--prefix-page", type=int, default=16,
+                    help="positions per KV page (clamped to a divisor of "
+                         "the ring length)")
+    ap.add_argument("--prefix-bytes", type=int, default=64 << 20,
+                    help="device byte budget for the page pool (LRU "
+                         "eviction of unreferenced pages beyond it)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared system-prompt tokens "
+                         "to every request (the prefix-cache workload)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: submit() beyond this "
+                         "depth raises EngineSaturated; 0 = unbounded")
+    ap.add_argument("--preempt", action="store_true",
+                    help="let a strictly higher-priority queued request "
+                         "preempt the lowest-priority running slot")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -153,33 +197,54 @@ def main(argv=None):
               f"{sizes['packed'] / 2**20:.1f} MiB + residual "
               f"{sizes['unpacked'] / 2**20:.1f} MiB")
 
+    decode_chunk = args.chunk or args.tokens
+    if args.drafter is not None:
+        decode_chunk = max(decode_chunk, args.draft_k + 1)
     scfg = ServeConfig(max_new_tokens=args.tokens,
                        temperature=args.temperature, eos_id=args.eos_id,
                        cache_len=args.cache_len, seed=args.seed,
-                       max_slots=args.slots,
-                       decode_chunk=args.chunk or args.tokens,
+                       max_slots=args.slots, decode_chunk=decode_chunk,
                        prefill_batch=args.prefill_batch,
                        prefill_chunk=args.prefill_chunk,
-                       prefill_bucket=args.prefill_bucket)
+                       prefill_bucket=args.prefill_bucket,
+                       drafter=args.drafter, draft_k=args.draft_k,
+                       draft_layers=args.draft_layers,
+                       draft_ngram=args.draft_ngram,
+                       draft_verify=args.draft_verify,
+                       prefix_cache=args.prefix_cache,
+                       prefix_page=args.prefix_page,
+                       prefix_bytes=args.prefix_bytes,
+                       max_queue=args.max_queue, preempt=args.preempt)
     engine = Engine(cfg, qp, scfg, device=dev)
     on_token = None
     if args.stream:
         on_token = lambda rid, tok: print(f"  [req {rid}] += {tok}")
     rng = np.random.default_rng(args.seed)
-    ids = [engine.submit([int(t) for t in rng.integers(0, cfg.vocab_size,
-                                                       args.prompt_len)],
-                         on_token=on_token)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           args.shared_prefix)]
+    ids = [engine.submit(shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, args.prompt_len)], on_token=on_token)
            for _ in range(args.requests)]
     results = engine.run()
     for rid in ids[:4]:
         print(f"req {rid}: {results[rid]}")
     s = engine.stats
+    spec = prefix = ""
+    if args.drafter is not None:
+        spec = (f", spec accept {s['accept_rate']:.0%} "
+                f"({s['draft_accepted']}/{s['draft_tokens']} drafts over "
+                f"{s['spec_rounds']} rounds)")
+    if args.prefix_cache:
+        hits = s["prefix_hits"] / s["admissions"] if s["admissions"] else 0.0
+        prefix = (f", prefix hits {hits:.0%} ({s['prefix_tokens_reused']} "
+                  f"tokens reused, {s['prefix_evictions']} evictions, "
+                  f"{s['prefix_insert_drops']} insert drops)")
     print(f"prefill {s['prefill_s']:.3f}s ({s['prefill_tok_per_s']:.1f} "
           f"tok/s, {s['prefill_groups']} groups, mean ttft "
           f"{s['ttft_s'] * 1e3:.1f}ms), decode {s['decode_s']:.3f}s, "
           f"{s['tok_per_s']:.1f} tok/s ({s['tokens']} tokens, "
           f"{s['host_syncs']} host syncs / {s['requests']} requests, "
-          f"{s['chunks']} chunks) on {dev}")
+          f"{s['chunks']} chunks{spec}{prefix}) on {dev}")
     return engine, results
 
 

@@ -13,7 +13,8 @@ materializing ``naive`` path in f32, its ``blockwise`` online softmax over
 KV chunks (plain torch, as the reference has no kernel for it), or, for a
 prefill chunk with ``impl="fused"``, the fused flash-style kernel
 ``kernels.prefill_attn.prefill_attn_fused`` (the CUDA kernel on the card,
-its plain version on the CPU).
+its plain version on the CPU). ``verify_attention`` replays
+``decode_attention`` column by column for a speculative draft block.
 """
 from __future__ import annotations
 
@@ -210,6 +211,45 @@ def prefill_attention(q, k_cache, v_cache, slot_pos, k_new, v_new,
     return naive_attention(q, k_all, v_all, causal=True, window=window,
                            scale=scale, softcap=softcap,
                            q_positions=positions, kv_positions=kv_pos)
+
+
+def verify_attention(q, k_cache, v_cache, slot_pos, k_new, v_new,
+                     positions, valid, *, window=None, scale=None,
+                     softcap=None):
+    """Draft-block verify attention (speculative decoding): the same
+    numbers as ``decode_attention`` run once per token.
+
+    ``prefill_attention`` sums the block's own keys at the end of the
+    concatenated KV axis, while decode sums each new key at its ring slot,
+    another f32 order. So verify replays decode's dataflow: for each column
+    j it writes that column's K/V (if valid) into a copy of the ring at
+    ``positions[:, j] % T`` and runs ``decode_attention`` for query j on
+    it. The caller's ring is not touched.
+
+    q: (B, S, H, D); k_new/v_new: (B, S, KH, D), rounded or dequantized as
+    the decode write path stores them; positions (B, S) per-row absolute;
+    valid (B, S) marks the columns that run. Invalid columns leave the ring
+    copy untouched and their outputs are garbage. Requires S <= T.
+    Returns (B, S, H, D)."""
+    B, S = q.shape[:2]
+    T = k_cache.shape[1]
+    bidx = torch.arange(B, device=q.device)
+    kc, vc, sp = k_cache.clone(), v_cache.clone(), slot_pos.clone()
+    outs = []
+    for j in range(S):
+        pj, ok = positions[:, j], valid[:, j]
+        slot = pj % T
+        kc[bidx, slot] = torch.where(ok[:, None, None],
+                                     k_new[:, j].to(kc.dtype),
+                                     kc[bidx, slot])
+        vc[bidx, slot] = torch.where(ok[:, None, None],
+                                     v_new[:, j].to(vc.dtype),
+                                     vc[bidx, slot])
+        sp[bidx, slot] = torch.where(ok, pj.to(sp.dtype), sp[bidx, slot])
+        outs.append(decode_attention(q[:, j:j + 1], kc, vc, sp, pj,
+                                     window=window, scale=scale,
+                                     softcap=softcap)[:, 0])
+    return torch.stack(outs, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *,

@@ -13,22 +13,32 @@ the stacked tensors.
 ``forward_seq`` is the cache-free full-sequence forward that calibration
 and the quality metrics run. Caches: ``k``/``v`` of shape
 ``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)`` int32 with -1 for an empty
-slot, as in the reference. Where the reference
-returns an updated copy, ``decode_step``, ``prefill_chunk`` and
-``cache_set_slots`` update the cache tensors in place (saving a copy of
-the whole cache per step) and return the same dict.
+slot, as in the reference; under ``cfg.kv_cache_quant`` ``k``/``v`` hold
+int8 codes and ``k_scale``/``v_scale`` ``(L, B, T, KH)`` their f32
+per-row scales. Where the reference returns an updated copy,
+``decode_step``, ``prefill_chunk``, ``verify_chunk``, ``verify_scan``,
+``cache_set_slots``, ``cache_scatter_pages`` and ``cache_ring_rewind``
+update the cache tensors in place (saving a copy of the whole cache per
+step) and return the same dict.
+
+The speculative-decoding pieces (``verify_chunk``, ``verify_scan``,
+``cache_ring_snapshot``/``cache_ring_rewind``) and the prefix cache's page
+copies (``cache_page_pool``, ``cache_gather_pages``,
+``cache_scatter_pages``) are the reference's.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import calibrate as CAL
-from repro_torch.core.quantize import QTensor
+from repro_torch.core.quantize import QTensor, _div, _safe_inv
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 _KV_FAMILIES = ("dense", "gpt2")
@@ -39,8 +49,8 @@ def _check_family(cfg: ModelConfig) -> None:
     unported = [f for f, on in (
         (f"family {cfg.family!r}", cfg.family not in _KV_FAMILIES),
         (f"act {cfg.act!r}", cfg.act not in ("swiglu", "gelu")),
-        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned")),
-        ("kv_cache_quant", cfg.kv_cache_quant)) if on]
+        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned"))
+    ) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 
@@ -202,6 +212,12 @@ def _apply_rope(q, k, cos_sin):
 # decode cache
 # ---------------------------------------------------------------------------
 
+# ring-payload entries: the int8 ring adds per-row scales. A prefix-cache
+# page carries these (``pos`` is stamped from the page's start position
+# at scatter time, never stored)
+_PAGE_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
 def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
     """Ring-buffer length: sliding-window archs only keep the window."""
     if cfg.sliding_window:
@@ -211,14 +227,73 @@ def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
-    """Zero/empty decode cache sized for contexts up to ``seq_len``."""
+    """Zero/empty decode cache sized for contexts up to ``seq_len``; an
+    int8 ring under ``cfg.kv_cache_quant``."""
     _check_family(cfg)
     dev = resolve_device(device)
     T = attn_cache_len(cfg, seq_len)
     shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.full((B, T), -1, dtype=torch.int32, device=dev)}
+    kdt = torch.int8 if cfg.kv_cache_quant else dtype
+    cache = {"k": torch.zeros(shape, dtype=kdt, device=dev),
+             "v": torch.zeros(shape, dtype=kdt, device=dev)}
+    if cfg.kv_cache_quant:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+    cache["pos"] = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    return cache
+
+
+def _quantize_kv(x):
+    """x: (..., Dh) -> (int8 codes, per-row f32 scale (...)): symmetric
+    absmax over the head dim, as the reference. The scale divides by a
+    tensor on x's device, so the card's codes equal the CPU's."""
+    xf = x.to(torch.float32)
+    scale = _div(xf.abs().amax(dim=-1), 127.0)
+    q = torch.clamp(torch.round(xf * _safe_inv(scale)[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _ring_layer(cache, li: int) -> Dict[str, torch.Tensor]:
+    """Layer ``li``'s ring payloads (views, written in place)."""
+    return {k: cache[k][li] for k in _PAGE_KEYS if k in cache}
+
+
+def _ring_values(ring):
+    """The K/V attention reads from a ring: the dequantized f32
+    reconstruction of an int8 ring, else the ring itself."""
+    if "k_scale" in ring:
+        return (ring["k"].to(torch.float32) * ring["k_scale"][..., None],
+                ring["v"].to(torch.float32) * ring["v_scale"][..., None])
+    return ring["k"], ring["v"]
+
+
+def _ring_entries(ring, k, v):
+    """New K/V (..., KH, Dh) in the ring's storage form, and the values
+    attention sees for them: ring-dtype rounding, or the int8 codes'
+    reconstruction (so results do not depend on chunk bounds)."""
+    if "k_scale" in ring:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return ({"k": kq, "v": vq, "k_scale": ks, "v_scale": vs},
+                (kq.to(torch.float32) * ks[..., None],
+                 vq.to(torch.float32) * vs[..., None]))
+    store = {"k": k.to(ring["k"].dtype), "v": v.to(ring["v"].dtype)}
+    return store, (store["k"], store["v"])
+
+
+def _ring_store(ring, store, bidx, slot, keep) -> None:
+    """In place: ``ring[e][bidx, slot] = store[e]`` for every entry, where
+    ``keep`` (the index shape) is True; elsewhere the row is written back
+    with what it held -- the reference's out-of-range "drop" without a
+    host sync. The (bidx, slot) pairs must be distinct."""
+    for name, val in store.items():
+        r = ring[name]
+        if keep is not None:
+            m = keep.reshape(keep.shape + (1,) * (val.dim() - keep.dim()))
+            val = torch.where(m, val, r[bidx, slot])
+        r[bidx, slot] = val
 
 
 def cache_set_slots(cache: Dict[str, Any], group_cache: Dict[str, Any],
@@ -244,13 +319,88 @@ def cache_set_slots(cache: Dict[str, Any], group_cache: Dict[str, Any],
     return cache
 
 
+def _ring_axis(key: str) -> int:
+    """Axis of the ring (cache position) dimension of a cache entry:
+    ``pos`` is (B, T), every payload (L, B, T, ...)."""
+    return 1 if key == "pos" else 2
+
+
+def cache_ring_snapshot(cache: Dict[str, Any], slots) -> Dict[str, Any]:
+    """Copies of ring rows ``slots`` (B, S) of every cache entry (k/v,
+    int8 scales, pos), taken before a speculative verify pass writes
+    them."""
+    return {k: kops.ring_gather(v, slots, ring_axis=_ring_axis(k))
+            for k, v in cache.items()}
+
+
+def cache_ring_rewind(cache: Dict[str, Any], snapshot: Dict[str, Any],
+                      slots, keep) -> Dict[str, Any]:
+    """Un-write rejected speculative entries, in place: restore snapshot
+    column j into ring row ``slots[b, j]`` for every j >= keep[b]
+    (columns below ``keep`` hold accepted tokens and stay). ``keep`` (B,)
+    is a device tensor. Exact through ring wrap: a rejected draft that
+    overwrote a still-in-window entry gets that entry back."""
+    for k, snap in snapshot.items():
+        kops.ring_restore(cache[k], snap, slots, keep,
+                          ring_axis=_ring_axis(k))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# page-granular cache copy (prefix cache)
+# ---------------------------------------------------------------------------
+
+def cache_page_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Pool entries a prefix-cache page carries: the ring payloads."""
+    return _PAGE_KEYS if cfg.kv_cache_quant else _PAGE_KEYS[:2]
+
+
+def cache_page_pool(cfg: ModelConfig, n_pages: int, page: int,
+                    dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Page pool for the prefix cache: every ring payload with the batch
+    axis read as a page index and the ring axis ``page`` rows long, e.g.
+    ``k`` (L, n_pages, page, KH, Dh). The live ring's dtypes (int8 + f32
+    scales under kv_cache_quant), so page copies are bit for bit."""
+    tmpl = init_cache(cfg, n_pages, page, dtype=dtype, device=device)
+    return {k: tmpl[k] for k in cache_page_keys(cfg)}
+
+
+def cache_page_bytes(cfg: ModelConfig, page: int,
+                     dtype=torch.bfloat16) -> int:
+    """Device bytes one page occupies (all payloads, all layers)."""
+    pool = cache_page_pool(cfg, 1, page, dtype=dtype, device="meta")
+    return sum(v.numel() * v.element_size() for v in pool.values())
+
+
+def cache_gather_pages(cache: Dict[str, Any], rows, cols) -> Dict[str, Any]:
+    """Copy page-shaped row blocks out of a decode cache: ``rows`` (n,)
+    batch slots and ``cols`` (n, page) ring slots, both host arrays.
+    Returns pool-layout payloads ((batch, ring) become (n, page))."""
+    return {k: kops.page_gather(cache[k], rows, cols,
+                                ring_axis=_ring_axis(k))
+            for k in _PAGE_KEYS if k in cache}
+
+
+def cache_scatter_pages(cache: Dict[str, Any], pages: Dict[str, Any], rows,
+                        cols, positions) -> Dict[str, Any]:
+    """Scatter pool pages into a decode cache in place and stamp their
+    absolute ``positions`` (n, page) into ``pos``. ``rows``, ``cols`` and
+    ``positions`` are host arrays; an entry of ``cols`` >= T drops that
+    element, on the host: batch padding, and the copy-on-write path (a
+    partial-page hit scatters only its matched leading rows)."""
+    for k, pg in pages.items():
+        kops.page_scatter(cache[k], pg, rows, cols, ring_axis=_ring_axis(k))
+    kops.page_scatter(cache["pos"], positions, rows, cols, ring_axis=1)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # decode (single new token against the cache)
 # ---------------------------------------------------------------------------
 
-def _attn_layer_decode(h, lp, kc, vc, slot_pos, position, slot, cfg,
+def _attn_layer_decode(h, lp, ring, slot_pos, position, slot, cfg,
                        cos_sin, impl, live):
-    """h: (B,1,d); kc/vc: (B,T,KH,Dh) views of this layer's ring, updated
+    """h: (B,1,d); ring: this layer's ring payloads (B,T,...), updated
     in place; position/slot: (B,); live: (B,) bool or None -- dead slots
     leave the cache untouched (their logits are garbage)."""
     B = h.shape[0]
@@ -258,14 +408,10 @@ def _attn_layer_decode(h, lp, kc, vc, slot_pos, position, slot, cfg,
     q, k, v = _qkv(a_in, lp, cfg, impl)
     q, k = _apply_rope(q, k, cos_sin)
     bidx = torch.arange(B, device=h.device)
-    k_new, v_new = k[:, 0].to(kc.dtype), v[:, 0].to(vc.dtype)
-    if live is not None:
-        lv = live[:, None, None]
-        k_new = torch.where(lv, k_new, kc[bidx, slot])
-        v_new = torch.where(lv, v_new, vc[bidx, slot])
-    kc[bidx, slot] = k_new                  # in place: one row per slot
-    vc[bidx, slot] = v_new
-    o = L.decode_attention(q, kc, vc, slot_pos, position,
+    store, _ = _ring_entries(ring, k[:, 0], v[:, 0])
+    _ring_store(ring, store, bidx, slot, live)  # in place: one row a slot
+    k_eff, v_eff = _ring_values(ring)
+    o = L.decode_attention(q, k_eff, v_eff, slot_pos, position,
                            window=cfg.sliding_window,
                            softcap=cfg.attn_logit_softcap)
     h = h + _attn_out(o, lp, cfg, impl)
@@ -298,8 +444,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     slot_pos = cache["pos"]
     for li in range(cfg.n_layers):
         h = _attn_layer_decode(h, _layer(params["layers"], li),
-                               cache["k"][li], cache["v"][li], slot_pos,
-                               position, slot, cfg, cos_sin, impl, live)
+                               _ring_layer(cache, li), slot_pos, position,
+                               slot, cfg, cos_sin, impl, live)
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
     return _logits(params, cfg, h[:, 0], impl=impl), cache
 
@@ -330,6 +476,10 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     ``cfg.attn_impl == "fused"`` takes the fused prefill attention (the
     CUDA kernel on the card); any other value the naive path.
 
+    A warm admission (prefix cache) scatters a prompt's cached positions
+    below ``start`` into the ring first; the chunk then attends them
+    there, as a later chunk of a cold prefill attends earlier chunks.
+
     Returns (final-norm hidden (B, C, d), cache updated in place)."""
     _check_family(cfg)
     B, C = tokens.shape
@@ -338,14 +488,43 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     valid = positions < lengths[:, None]
     attn_impl = "fused" if cfg.attn_impl == "fused" else "naive"
     return _masked_chunk(params, cfg, cache, tokens, positions, valid,
-                         attn_impl)
+                         functools.partial(L.prefill_attention,
+                                           impl=attn_impl))
+
+
+def verify_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
+                 tokens, positions, valid):
+    """Score a per-slot block of tokens against the decode cache in one
+    batched forward (the speculative-decoding verify pass): the masked
+    chunk of ``prefill_chunk`` with explicit per-row ``positions`` (B, C)
+    and ``valid`` (B, C), its attention ``layers.verify_attention``
+    (decode's dataflow column by column). Writes for drafts that turn out
+    rejected are undone by ``cache_ring_rewind``. Returns (final-norm
+    hidden (B, C, d), cache updated in place)."""
+    _check_family(cfg)
+    return _masked_chunk(params, cfg, cache, tokens, positions, valid,
+                         L.verify_attention)
+
+
+def verify_scan(params, cfg: ModelConfig, cache: Dict[str, Any], *,
+                tokens, positions, valid):
+    """Bit-exact verify: ``decode_step`` once per column of the block,
+    each with ``live = valid[:, j]``, so every column's logits are plain
+    decode's. Same arguments as ``verify_chunk``; returns (logits
+    (B, C, V) f32, cache updated in place)."""
+    logits = []
+    for j in range(tokens.shape[1]):
+        lg, cache = decode_step(params, cfg, cache, tokens=tokens[:, j],
+                                position=positions[:, j], live=valid[:, j])
+        logits.append(lg)
+    return torch.stack(logits, dim=1), cache
 
 
 def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
-                  attn_impl):
-    """One (B, C) masked chunk forward against the ring, writing valid
-    columns at ``positions % T``; ``attn_impl`` is the prefill attention's
-    ``impl``."""
+                  attn_fn):
+    """Shared body of prefill_chunk / verify_chunk: one (B, C) masked
+    chunk forward against the ring, writing valid columns at
+    ``positions % T``; ``attn_fn`` is the chunk attention."""
     impl = cfg.kernel_impl
     B, C = tokens.shape
     T = cache["k"].shape[2]
@@ -360,23 +539,19 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
     bidx = torch.arange(B, device=tokens.device)[:, None]
     slot = positions % T
     old_pos = cache["pos"].clone()          # every layer attends pre-chunk
-    vmask = valid[:, :, None, None]
     for li in range(cfg.n_layers):
         lp = _layer(params["layers"], li)
-        kc, vc = cache["k"][li], cache["v"][li]
+        ring = _ring_layer(cache, li)
         a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
         q, k, v = _qkv(a_in, lp, cfg, impl)
         q, k = _apply_rope(q, k, cos_sin)
-        k_chunk = k.to(kc.dtype)            # ring-dtype rounding, so results
-        v_chunk = v.to(vc.dtype)            # do not depend on chunk bounds
-        o = L.prefill_attention(q, kc, vc, old_pos, k_chunk, v_chunk,
-                                positions, valid,
-                                window=cfg.sliding_window,
-                                softcap=cfg.attn_logit_softcap,
-                                impl=attn_impl)
+        store, (k_chunk, v_chunk) = _ring_entries(ring, k, v)
+        k_ring, v_ring = _ring_values(ring)
+        o = attn_fn(q, k_ring, v_ring, old_pos, k_chunk, v_chunk, positions,
+                    valid, window=cfg.sliding_window,
+                    softcap=cfg.attn_logit_softcap)
         # in place, after the attention above read the pre-write ring
-        kc[bidx, slot] = torch.where(vmask, k_chunk, kc[bidx, slot])
-        vc[bidx, slot] = torch.where(vmask, v_chunk, vc[bidx, slot])
+        _ring_store(ring, store, bidx, slot, valid)
         h = h + _attn_out(o, lp, cfg, impl)
         m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
         h = h + _mlp(m_in, lp, cfg, impl)

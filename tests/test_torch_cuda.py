@@ -467,3 +467,53 @@ def test_q8k_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="valid"):
         PK.q8k_quantize_cuda(x, torch.ones(3, dtype=torch.bool,
                                            device=cuda_device))
+
+
+# -- int8 KV cache and the ring/page copies (no kernel: torch ops) ---------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_the_card_equals_the_cpu(cuda_device, dtype):
+    """The int8 KV cache's codes and scales, byte for byte: the scale
+    divides by a tensor on the card, which rounds as the CPU does (a
+    Python-scalar divisor is a reciprocal multiply there)."""
+    from repro_torch.models import transformer as PT
+    g = torch.Generator().manual_seed(43)
+    for shape in ((4, 4, 64), (7, 5, 128)):
+        x = (torch.randn(shape, generator=g) * 3).to(dtype)
+        x[0, 1] = 0                                 # an all-zero row
+        x[1, 0, :3] *= 1e3
+        q_cpu, s_cpu = PT._quantize_kv(x)
+        q_gpu, s_gpu = PT._quantize_kv(x.to(cuda_device))
+        assert _bytes_equal(q_gpu.cpu(), q_cpu), shape
+        assert _bytes_equal(s_gpu.cpu(), s_cpu), shape
+
+
+@pytest.mark.cuda
+def test_ring_and_page_copies_on_the_card_equal_the_cpu(cuda_device):
+    """ring_gather/ring_restore (speculative rewind) and page_gather/
+    page_scatter (prefix cache, entries >= T dropped on the host) on the
+    card against the same calls on the CPU."""
+    g = torch.Generator().manual_seed(44)
+    L, B, T, KH, D, S, page = 2, 3, 16, 2, 8, 4, 4
+    kv = torch.randn(L, B, T, KH, D, generator=g)
+    pos = torch.randint(-1, 40, (B, T), generator=g, dtype=torch.int32)
+    slots = (torch.tensor([[3], [14], [7]]) + torch.arange(S)) % T
+    keep = torch.tensor([0, 2, 4])
+    rows = np.array([2, 0, 1])
+    cols = np.array([[4, 5, 6, 7], [12, 13, 14, 15], [0, 1, T, T]])
+    for arr, axis in ((kv, 2), (pos, 1)):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            a = arr.to(dev).clone()
+            snap = PO.ring_gather(a, slots.to(dev), ring_axis=axis)
+            a.fill_(0)
+            PO.ring_restore(a, snap, slots.to(dev), keep.to(dev),
+                            ring_axis=axis)
+            pages = PO.page_gather(arr.to(dev), rows, np.where(
+                cols < T, cols, 0), ring_axis=axis)
+            PO.page_scatter(a, pages, rows[::-1].copy(), cols,
+                            ring_axis=axis)
+            out[str(dev)] = (snap.cpu(), pages.cpu(), a.cpu())
+        for x, y in zip(out["cpu"], out[str(cuda_device)]):
+            assert _bytes_equal(x, y)

@@ -130,6 +130,15 @@ def test_budgets_eos_and_cancel(workload):
                                          ("prefix_cache", True), ("tp", 2),
                                          ("max_queue", 4), ("preempt", True)])
 def test_unported_features_raise(workload, field, value):
-    _, _, pqp, _ = workload
-    with pytest.raises(NotImplementedError, match=field):
-        _port_engine(pqp, **{field: value})
+    """Only tensor parallelism is still unported: it raises, alone or
+    beside a ported feature, which the engine now takes and serves."""
+    _, _, pqp, prompts = workload
+    if field == "tp":
+        with pytest.raises(NotImplementedError,
+                           match="tp=2.*queue 1 item 7"):
+            _port_engine(pqp, tp=value)
+        return
+    got = _port_engine(pqp, **{field: value}).generate(prompts[:2])
+    assert got == _port_engine(pqp).generate(prompts[:2])
+    with pytest.raises(NotImplementedError, match="tp"):
+        _port_engine(pqp, tp=2, **{field: value})

@@ -3,8 +3,10 @@
 ``repro_torch.launch.serve.main`` runs on the CPU with ``--reduced
 --device cpu`` and each flag the reference launcher has for plain
 serving: ``--temperature``, ``--eos-id``, ``--seed``, ``--stream`` and
-``--no-quant``. ``main`` returns the engine after its run and the
-``{request id: tokens}`` it printed.
+``--no-quant``; and for speculative decoding, the prefix cache and SLO
+admission: ``--drafter``, ``--draft-*``, ``--prefix-*``,
+``--shared-prefix``, ``--max-queue`` and ``--preempt``. ``main`` returns
+the engine after its run and the ``{request id: tokens}`` it printed.
 """
 import re
 
@@ -89,3 +91,38 @@ def test_seed_changes_weights_and_prompts(calls):
     assert len(p0) == len(p1) == 3 and p0 != p1
     assert not torch.equal(e0.params["wte"], e1.params["wte"])
     assert e0.scfg.seed == 0 and e1.scfg.seed == 1
+
+
+SPEC = ["--drafter", "self", "--draft-k", "3", "--draft-layers", "1",
+        "--draft-ngram", "3", "--draft-verify", "scan"]
+PREFIX = ["--prefix-cache", "--prefix-page", "8", "--prefix-bytes",
+          str(1 << 20), "--shared-prefix", "20"]
+
+
+def test_spec_prefix_and_slo_flags_reach_the_engine(calls, capsys):
+    _, plain = serve.main(BASE + ["--shared-prefix", "20"])
+    capsys.readouterr()
+    eng, res = serve.main(BASE + SPEC + PREFIX + ["--max-queue", "8",
+                                                  "--preempt", "--chunk",
+                                                  "2"])
+    s = eng.scfg
+    assert (s.drafter, s.draft_k, s.draft_layers, s.draft_ngram,
+            s.draft_verify) == ("self", 3, 1, 3, "scan")
+    assert (s.prefix_cache, s.prefix_page, s.prefix_bytes) == (True, 8,
+                                                               1 << 20)
+    assert (s.max_queue, s.preempt) == (8, True)
+    assert s.decode_chunk == 4          # raised to fit one verify round
+    prompts = calls["prompts"][-3:]
+    assert all(p[:20] == prompts[0][:20] and len(p) == 26 for p in prompts)
+    assert eng.stats["prefix_hits"] > 0 and eng.stats["spec_rounds"] > 0
+    out = capsys.readouterr().out
+    assert re.search(r"spec accept \d+% \(\d+/\d+ drafts over \d+ rounds\)",
+                     out)
+    assert re.search(r"prefix hits \d+% \(\d+ tokens reused", out)
+    # greedy speculation (scan verify: decode's logits bit for bit) and
+    # the prefix cache keep plain serving's tokens
+    assert res == plain
+    eng, _ = serve.main(BASE + ["--drafter", "ngram", "--draft-verify",
+                                "batched"])
+    assert eng.scfg.draft_verify == "batched"
+    assert eng.stats["draft_tokens"] > 0
