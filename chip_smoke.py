@@ -30,7 +30,12 @@ Phases, each of which exits nonzero on failure:
    packing on the card against the CPU's, byte for byte (Q3_K_O on
    tie-free scores). The reduced model's
    logits on the card against the CPU's plain path, on both serving paths
-   and under the hand-written slice-3 policy.
+   and under the hand-written slice-3 policy. And every full-width model
+   that a later phase packs is checked as soon as it is packed: each of
+   its packed weights that the kernel serves (every one but the MoE
+   expert stacks, which are multiplied by bmm) through the kernel and its
+   plain version at decode M, f32 and bf16 out, at these tolerances, so
+   each (variant, K, N) that a served model runs is checked on the card.
 3. serve, slice 1: full-width tinyllama-1.1b from random weights (seeded),
    packed with paper_llama_mix on the card, serves the paper's Table IV
    scenario (8 requests, 6-token prompts, 10 new tokens, 4 slots) through
@@ -156,6 +161,33 @@ Phases, each of which exits nonzero on failure:
    ``on_done`` once) and completes; with the slots full and two requests
    queued, a further submit raises ``EngineSaturated("queue_full")``.
    Phases 17-20 each print their wall time.
+21. MoE, slice 7: full-width olmoe-1b-7b (64 experts top-8, qk-norm) from
+   random weights (seeded), packed with default_serve_mix on the card
+   (the expert stacks along E*K, one layer at a time): 33 q2_k + 80 q3_k
+   matmuls (each expert stack counted once a layer). Path 1's traffic;
+   every forward launches 33 q2_k + 32 q3_k kernels (no kernel serves an
+   expert stack: they are dequantized to bf16 and multiplied by bmm, as
+   the reference's einsum), greedy tokens equal generate_reference, and
+   an engine with prefill_batch=1 gives prefill_batch=4's tokens. Layer
+   0's moe_block on the card equals the same call on the CPU at
+   ``TOL_MOE``. The peak ``max_memory_allocated``, decode and prefill
+   tok/s, each packed (variant, K, N)'s decode forward timed as phase 4
+   times a variant, and one decode forward's expert path by CUDA events
+   (dequantize, bmm products, moe_block whole) are printed.
+22. MoE fused, slice 7: olmoe with ``attn_impl="fused"`` on path 2's
+   traffic: 16 attention kernels every prefill-chunk forward (D = 128,
+   G = 1), generate == generate_reference, and the token choices dropped
+   a chunk forward (capacity 21 a expert a row at C = 128) printed and
+   nonzero; then phase 18's shared-prefix queue (a 512 MiB pool of 256
+   2-MiB pages): cache off, then on twice, the same tokens (a warm group
+   keeps the cold grid's whole chunks, so the same drops), 16 attention
+   launches a prefill-chunk forward, and a warm chunk's 16 attention
+   launches held against the plain version and timed.
+23. MoE, slice 7: full-width granite-moe-3b-a800m (40 experts top-8,
+   GQA 24/8, LM head N = 49155) as phase 21 without the second engine and
+   the CPU check: 65 q2_k + 160 q3_k matmuls, 65 q2_k + 64 q3_k launches
+   a forward, generate == generate_reference, timings as phase 21.
+   Phases 21-23 each print their wall time.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -262,6 +294,24 @@ DRAFT_LAYERS = 2
 SELF_PER_DRAFT = {"q2_k": 5, "q3_k": 10}    # 2 layers' wk, wv + the head
 SERVE_SLO = dict(SERVE, decode_chunk=2, preempt=True, max_queue=2)
 MARGIN_TOL = 0.1        # ROADMAP's parity contract (test_torch_engine.py)
+# slice 7: the MoE family at full width under default_serve_mix (the
+# reference launcher's default); (arch, variant_counts, matmul launches a
+# forward): the expert stacks are packed (counted once a layer) but run
+# as bmm on dequantized bf16 stacks, so no matmul kernel serves them
+MOE_POLICY = "default_serve_mix"
+MOE_MODELS = (("olmoe-1b-7b", {"q2_k": 33, "q3_k": 80},
+               {"q2_k": 33, "q3_k": 32}),
+              ("granite-moe-3b-a800m", {"q2_k": 65, "q3_k": 160},
+               {"q2_k": 65, "q3_k": 64}))
+MOE_FUSED = "olmoe-1b-7b"       # also path 2's traffic fused, and the
+                                # prefix cache on phase 18's traffic
+# phase 18's queue on olmoe: 2 MiB pages (16 layers x 16 positions x 16
+# KV heads x 128 x 2 B x (k, v)), a 512 MiB pool
+SERVE_PREFIX_MOE = dict(SERVE_PREFIX, prefix_bytes=512 << 20)
+PREFIX_CAPACITY_MOE = 256
+TOL_MOE = 2.0 ** -6     # one layer's moe_block, card vs CPU, bf16 out: the
+                        # bf16 expert products summed in another order, and
+                        # the output rounded again (tests/test_torch_cuda.py)
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -752,7 +802,7 @@ def phase_attn_timing(torch, PA, n_layers, dev):
 
 
 def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
-                    get_policy, policy, dev, expect):
+                    get_policy, policy, dev, expect, PB):
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -764,6 +814,7 @@ def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
     print(f"[pack] full-width {cfg.name} under {policy} packed in "
           f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
     check(counts == expect, f"{policy} layout: {counts}, expected {expect}")
+    check_shapes(torch, qp, cfg, PB, dev)
     return qp
 
 
@@ -1054,16 +1105,58 @@ def _packed(tree):
             yield v
 
 
-def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag):
-    """One decode forward's launches (M = max_slots) of each packed
-    (variant, K, N) of the model, timed as phase 4 times a variant's."""
+def _kernel_weights(qp, cfg):
+    """(variant, K, N) -> every packed weight of that shape that the
+    matmul kernel serves, one a layer; the MoE expert stacks, which no
+    kernel serves, are left out."""
     groups = {}
-    for t in _packed(qp["layers"]):
+    layers = {k: v for k, v in qp["layers"].items() if k != "moe"}
+    for t in _packed(layers):
         groups.setdefault((t.variant, *t.shape), []).extend(
             t.layer(i) for i in range(cfg.n_layers))
     if hasattr(qp.get("lm_head"), "variant"):
         t = qp["lm_head"]
         groups.setdefault((t.variant, *t.shape), []).append(t)
+    return groups
+
+
+# (arch, variant, K, N) -> (weights checked, largest f32 abs error) of
+# every full-width model packed, filled by check_shapes
+PACKED_CHECKED = {}
+
+
+def check_shapes(torch, qp, cfg, PB, dev):
+    """Each weight of ``_kernel_weights`` through the kernel against its
+    plain version at M = max_slots, f32 and bf16 out, at phase 2's
+    tolerances; one line a (variant, K, N)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    for (variant, K, N), ts in sorted(_kernel_weights(qp, cfg).items()):
+        x = torch.randn(M_DECODE, K, generator=g, device=dev).bfloat16()
+        e32 = e16 = worst = 0.0
+        for t in ts:
+            y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+            ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
+            check(bool(torch.isfinite(y).all()),
+                  f"{cfg.name} {variant} ({K}, {N}): non-finite output")
+            e32 = max(e32, rel_err(y, ref))
+            worst = max(worst, float((y - ref).abs().max()))
+            e16 = max(e16, rel_err(PB.bfp_matmul_cuda(x, t),
+                                   PB.bfp_matmul_plain(x, t)))
+        PACKED_CHECKED[(cfg.name, variant, K, N)] = (len(ts), worst)
+        print(f"[packed] {cfg.name} {variant} ({K}, {N}) x{len(ts)}, M="
+              f"{M_DECODE}: kernel vs plain f32 rel {e32:.2e} (tol "
+              f"{TOL_F32:.0e}), bf16 rel {e16:.2e} (tol {TOL_BF16:.2e})",
+              flush=True)
+        check(e32 <= TOL_F32, f"{cfg.name} {variant} ({K}, {N}) f32 error")
+        check(e16 <= TOL_BF16, f"{cfg.name} {variant} ({K}, {N}) bf16 "
+              "error")
+
+
+def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag):
+    """One decode forward's launches (M = max_slots) of each packed
+    (variant, K, N) of the model that the kernel serves, timed as phase 4
+    times a variant's (each checked by ``check_shapes`` at packing)."""
+    groups = _kernel_weights(qp, cfg)
     g = torch.Generator(device=dev).manual_seed(14)
     out = {}
     for (variant, K, N), ts in sorted(groups.items()):
@@ -1103,7 +1196,8 @@ def phase_slice5(torch, np, get_arch, T, quantize_params, variant_counts,
     for arch, per_forward in SLICE5_MODELS:
         cfg = get_arch(arch)
         qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
-                             get_policy, "paper_llama_mix", dev, per_forward)
+                             get_policy, "paper_llama_mix", dev, per_forward,
+                             PB)
         rng = np.random.default_rng(0)
         prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
                                                  PROMPT_LEN)]
@@ -1315,60 +1409,11 @@ def phase_kv8(torch, cfg, qp, prompts, T, Engine, ServeConfig, PB, PA,
     return launches, tokens, rates
 
 
-def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev):
-    """Phase 18: a shared-prefix queue under extended_mix with the fused
-    attention, cache off, then on twice; the warm chunks' attention
-    launches held against the plain version and timed. Returns (matmul
-    launches, attention launches, stats, attention timing)."""
-    t_phase = time.perf_counter()
-    rng = np.random.default_rng(18)
-    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
-    prompts = [shared + [int(t) for t in rng.integers(
-        0, cfg.vocab_size, int(n))]
-        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
-                              N_REQUESTS)]
-    off = Engine(cfg, qp, ServeConfig(**SERVE_PREFIX), device=dev)
-    res_off, s_off, _, _ = _served(torch, off, prompts, PB)
-    on = Engine(cfg, qp, ServeConfig(**SERVE_PREFIX, prefix_cache=True),
-                device=dev)
-    check(on._prefix.capacity == PREFIX_CAPACITY,
-          f"page pool of {on._prefix.capacity} pages, expected "
-          f"{PREFIX_CAPACITY}")
-    runs = []
-    launches, attn = {v: 0 for v in PB.VARIANTS}, 0
-    for i in range(2):
-        PB.reset_launches()
-        PA.reset_launches()
-        torch.cuda.synchronize()
-        res = on.generate(prompts)
-        torch.cuda.synchronize()
-        s = dict(on.stats)
-        runs.append((res, s))
-        lw, aw = dict(PB.launches), PA.launches["prefill_attn"]
-        _check_launches(f"prefix run {i + 1}", PB, lw, s,
-                        EXTENDED_PER_FORWARD)
-        check(aw == cfg.n_layers * s["prefill_forwards"],
-              f"prefix run {i + 1}: {aw} attention launches over "
-              f"{s['prefill_forwards']} prefill-chunk forwards")
-        launches = {v: launches[v] + lw[v] for v in PB.VARIANTS}
-        attn += aw
-        print(f"[prefix] run {i + 1}: {_engine_rates(s)}, "
-              f"prefix_hits {s['prefix_hits']}, prefix_tokens_reused "
-              f"{s['prefix_tokens_reused']} of {s['prefill_tokens']} prompt "
-              f"tokens, {s['prefill_forwards']} prefill-chunk forwards, "
-              f"evictions {s['prefix_evictions']}, insert drops "
-              f"{s['prefix_insert_drops']}", flush=True)
-    print(f"[prefix] cache off: {_engine_rates(s_off)}, "
-          f"{s_off['prefill_forwards']} prefill-chunk forwards", flush=True)
-    check(runs[0][0] == res_off and runs[1][0] == res_off,
-          "prefix cache: tokens differ from the cache-off engine")
-    check(runs[0][1]["prefix_hits"] >= 4 and runs[1][1]["prefix_hits"] == 8,
-          "prefix cache: too few hits")
-    check(all(len(t) == SERVE_PREFIX["max_new_tokens"] for t in res_off),
-          "prefix cache: a request did not get its tokens")
-
-    # the warm chunks' attention: record one warm admission's launches,
-    # hold each against the plain version, time the 22 of one chunk
+def chunk_attn_timing(torch, PA, eng, prompts, n_layers, tag, what):
+    """Record the attention launches of ``eng.generate`` on the first
+    ``max_slots`` prompts, hold the first chunk forward's ``n_layers``
+    against the plain version on visible rows, and time them beside their
+    bound and ``scaled_dot_product_attention``."""
     jobs = []
     orig = PA.prefill_attn_cuda
 
@@ -1377,11 +1422,11 @@ def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev):
         return orig(*a, **kw)
     PA.prefill_attn_cuda = record
     try:
-        on.generate(prompts[:SERVE_PREFIX["max_slots"]])
+        eng.generate(prompts[:eng.scfg.max_slots])
     finally:
         PA.prefill_attn_cuda = orig
     torch.cuda.synchronize()
-    chunk = jobs[:cfg.n_layers]
+    chunk = jobs[:n_layers]
     worst = 0.0
     for (q, k, v, qp_, kp), kw in chunk:
         y = orig(q, k, v, qp_, kp, **kw)
@@ -1389,11 +1434,11 @@ def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev):
         vis = visible_rows(qp_, kp, kw.get("window")).any(-1)
         worst = max(worst, rel_err(y[vis], ref[vis]))
     (q, k, v, qp_, kp), _ = chunk[0]
-    print(f"[prefix] warm chunk attention {tuple(q.shape)} x T={k.shape[1]} "
-          f"{q.dtype} (ring rows from the page pool, {int((kp[0] >= 0).sum())}"
-          f" keys visible to row 0): kernel vs plain rel {worst:.2e} (tol "
+    print(f"[{tag}] {what} attention {tuple(q.shape)} x T={k.shape[1]} "
+          f"KH={k.shape[2]} {q.dtype} ({int((kp[0] >= 0).sum())} ring keys "
+          f"visible to row 0): kernel vs plain rel {worst:.2e} (tol "
           f"{TOL_BF16:.1e})", flush=True)
-    check(worst <= TOL_BF16, "prefill_attn on a warm chunk disagrees")
+    check(worst <= TOL_BF16, f"prefill_attn on a {what} disagrees")
     kern = _device_ms(torch, lambda: [orig(*a, **kw) for a, kw in chunk],
                       10)
     plain = _device_ms(torch, lambda: [PA.prefill_attn_plain(*a, **kw)
@@ -1407,15 +1452,77 @@ def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev):
     pairs = sum(int(visible_rows(a[3], a[4], None).sum()) for a, _ in chunk)
     flops = pairs * q.shape[2] * 4 * q.shape[3]
     timing = _timing(kern, plain, lib, nbytes, flops, len(chunk))
-    print(f"[prefix] prefill_attn warm prefill-chunk forward ({len(chunk)} "
-          f"launches): kernel {kern:.3f} ms, bound {timing['bound_ms']:.4f} "
-          f"ms ({timing['bound_by']}, {nbytes / 1e6:.1f} MB, "
+    print(f"[{tag}] prefill_attn {what} forward ({len(chunk)} launches): "
+          f"kernel {kern:.3f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']}, {nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP), plain {plain:.3f} ms, "
           f"scaled_dot_product_attention {lib:.3f} ms; x lib "
           f"{kern / lib:.2f}", flush=True)
     timing["max_rel_err"] = worst
+    return timing
+
+
+def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev,
+                 per_forward=EXTENDED_PER_FORWARD, scfg=SERVE_PREFIX,
+                 capacity=PREFIX_CAPACITY, tag="prefix", phase="18",
+                 warm=True):
+    """Phase 18 (phase 22 on olmoe): a shared-prefix queue with the fused
+    attention, cache off (after a warm-up run unless ``warm`` is False),
+    then on twice; every forward launches ``per_forward`` matmul kernels;
+    the warm chunks' attention launches held against the plain version
+    and timed. Returns (matmul launches, attention launches, stats,
+    attention timing)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
+    prompts = [shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(n))]
+        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
+                              N_REQUESTS)]
+    off = Engine(cfg, qp, ServeConfig(**scfg), device=dev)
+    res_off, s_off, _, _ = _served(torch, off, prompts, PB, warm=warm)
+    on = Engine(cfg, qp, ServeConfig(**scfg, prefix_cache=True),
+                device=dev)
+    check(on._prefix.capacity == capacity,
+          f"page pool of {on._prefix.capacity} pages, expected {capacity}")
+    runs = []
+    launches, attn = {v: 0 for v in PB.VARIANTS}, 0
+    for i in range(2):
+        PB.reset_launches()
+        PA.reset_launches()
+        torch.cuda.synchronize()
+        res = on.generate(prompts)
+        torch.cuda.synchronize()
+        s = dict(on.stats)
+        runs.append((res, s))
+        lw, aw = dict(PB.launches), PA.launches["prefill_attn"]
+        _check_launches(f"{tag} run {i + 1}", PB, lw, s, per_forward)
+        check(aw == cfg.n_layers * s["prefill_forwards"],
+              f"{tag} run {i + 1}: {aw} attention launches over "
+              f"{s['prefill_forwards']} prefill-chunk forwards")
+        launches = {v: launches[v] + lw[v] for v in PB.VARIANTS}
+        attn += aw
+        print(f"[{tag}] run {i + 1}: {_engine_rates(s)}, "
+              f"prefix_hits {s['prefix_hits']}, prefix_tokens_reused "
+              f"{s['prefix_tokens_reused']} of {s['prefill_tokens']} prompt "
+              f"tokens, {s['prefill_forwards']} prefill-chunk forwards, "
+              f"evictions {s['prefix_evictions']}, insert drops "
+              f"{s['prefix_insert_drops']}", flush=True)
+    print(f"[{tag}] cache off: {_engine_rates(s_off)}, "
+          f"{s_off['prefill_forwards']} prefill-chunk forwards", flush=True)
+    check(runs[0][0] == res_off and runs[1][0] == res_off,
+          f"{tag}: tokens differ from the cache-off engine")
+    check(runs[0][1]["prefix_hits"] >= 4 and runs[1][1]["prefix_hits"] == 8,
+          f"{tag}: too few hits")
+    check(all(len(t) == scfg["max_new_tokens"] for t in res_off),
+          f"{tag}: a request did not get its tokens")
+
+    # the warm chunks' attention: record one warm admission's launches,
+    # hold each against the plain version, time the 22 of one chunk
+    timing = chunk_attn_timing(torch, PA, on, prompts, cfg.n_layers,
+                               tag, "warm chunk")
     stats = {"off": s_off, "cold": runs[0][1], "warm": runs[1][1]}
-    print(f"[prefix] phase 18 took {time.perf_counter() - t_phase:.1f}s",
+    print(f"[{tag}] phase {phase} took {time.perf_counter() - t_phase:.1f}s",
           flush=True)
     return launches, attn, stats, timing
 
@@ -1594,6 +1701,203 @@ def phase_slo(torch, cfg, qp, prompts, Engine, ServeConfig,
     return launches
 
 
+def count_drops(torch, PM, T):
+    """Wrap ``T.prefill_chunk`` and ``PM.dispatch`` to count, on the device
+    with no host sync, the valid token choices (padding columns left out)
+    that prefill chunks route and drop. Returns (counters, restore)."""
+    orig_chunk, orig_dispatch = T.prefill_chunk, PM.dispatch
+    acc = {"calls": 0, "valid": None, "choices": 0, "dropped": 0}
+
+    def chunk(params, cfg, cache, *, tokens, start, lengths):
+        C = tokens.shape[1]
+        pos = start + torch.arange(C, device=tokens.device)
+        acc["valid"] = pos[None] < lengths[:, None]
+        try:
+            return orig_chunk(params, cfg, cache, tokens=tokens, start=start,
+                              lengths=lengths)
+        finally:
+            acc["valid"] = None
+
+    def dispatch(topi, E, C):
+        e, slot, keep = orig_dispatch(topi, E, C)
+        if acc["valid"] is not None:
+            v = acc["valid"][..., None].expand(topi.shape).reshape(
+                keep.shape)
+            acc["calls"] += 1
+            acc["choices"] = acc["choices"] + v.sum()
+            acc["dropped"] = acc["dropped"] + (v & ~keep).sum()
+        return e, slot, keep
+    T.prefill_chunk, PM.dispatch = chunk, dispatch
+
+    def restore():
+        T.prefill_chunk, PM.dispatch = orig_chunk, orig_dispatch
+    return acc, restore
+
+
+def phase_moe_block(torch, cfg, qp, PM, T, dev):
+    """Layer 0's moe_block on the card against the same call on the CPU
+    (the packed layer moved there), at path 1's prefill-chunk shape."""
+    lp = T._layer(qp["layers"], 0)["moe"]
+    cpu = {k: v.to("cpu") for k, v in lp.items()}
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(SERVE["prefill_batch"], SERVE["prefill_chunk"],
+                    cfg.d_model, generator=g).bfloat16()
+    y, aux = PM.moe_block(x.to(dev), lp, cfg)
+    y_cpu, aux_cpu = PM.moe_block(x, cpu, cfg)
+    err = rel_err(y.cpu(), y_cpu)
+    print(f"[moe] {cfg.name} layer-0 moe_block {tuple(x.shape)} bf16, card "
+          f"vs CPU: rel {err:.2e} (tol {TOL_MOE:.1e}), aux {float(aux):.6f}"
+          f" vs {float(aux_cpu):.6f}", flush=True)
+    check(err <= TOL_MOE and bool(torch.isfinite(y).all()),
+          f"{cfg.name}: moe_block on the card disagrees with the CPU")
+    check(abs(float(aux) - float(aux_cpu)) <= 1e-5 * abs(float(aux_cpu)),
+          f"{cfg.name}: moe_block aux loss disagrees with the CPU")
+    return err
+
+
+def phase_expert_timing(torch, cfg, qp, PM, T, dev, tag):
+    """One decode forward's expert path (B = max_slots, S = 1): every
+    layer's three stacks dequantized to bf16, the bmm products (with the
+    bf16 silu) on one layer's dequantized stacks at the dispatch shape
+    (each layer streams its own 3 stacks from HBM, so one layer's stand
+    for every layer's bytes), and ``moe_block`` whole, by CUDA events."""
+    moe = qp["layers"]["moe"]
+    E, L, B = cfg.n_experts, cfg.n_layers, M_DECODE
+    names = ("w_gate", "w_up", "w_down")
+
+    lps = [T._layer(moe, i) for i in range(L)]
+
+    def dequant():
+        for lp in lps:
+            for n in names:
+                PM.expert_weights(lp[n], E)
+    deq = _device_ms(torch, dequant, 3)
+    wg, wu, wd = (PM.expert_weights(lps[0][n], E) for n in names)
+    C = PM._capacity(1, cfg.n_experts_active, E, cfg.capacity_factor)
+    g = torch.Generator(device=dev).manual_seed(22)
+    bufs = torch.randn(B, E, C, cfg.d_model, generator=g,
+                       device=dev).bfloat16()
+
+    def products():
+        for _ in range(L):
+            for b in range(B):
+                hg = torch.bmm(bufs[b], wg)
+                hu = torch.bmm(bufs[b], wu)
+                torch.bmm(PM._silu_bf16(hg) * hu, wd)
+    prod = _device_ms(torch, products, 10)
+    del wg, wu, wd
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev).bfloat16()
+    whole = _device_ms(torch, lambda: [PM.moe_block(x, lp, cfg)
+                                       for lp in lps], 3)
+    packed = sum(getattr(moe[n], "nbytes", 0) for n in names)
+    out = {"dequantize_ms": deq, "products_ms": prod, "moe_block_ms": whole,
+           "packed_expert_bytes": packed,
+           "dequantized_bf16_bytes": 3 * L * E * cfg.d_model
+           * cfg.moe_d_ff * 2}
+    print(f"[{tag}] {cfg.name} expert path a decode forward (B={B}, C={C},"
+          f" {L} layers): dequantize {deq:.3f} ms ({packed / 1e9:.2f} GB "
+          f"packed -> {out['dequantized_bf16_bytes'] / 1e9:.2f} GB bf16), "
+          f"bmm products {prod:.3f} ms, moe_block whole {whole:.3f} ms",
+          flush=True)
+    return out
+
+
+def phase_slice7(torch, np, get_arch, T, quantize_params, variant_counts,
+                 get_policy, Engine, ServeConfig, PB, PA, PM, Q, dev):
+    """Phases 21-23: the MoE family at full width. Returns (matmul
+    launches by path, attention launches by path, per-shape matmul timing
+    by arch, results for the summary line)."""
+    launches, attn, timing, out = {}, {}, {}, {}
+    for arch, counts, per_forward in MOE_MODELS:
+        t_phase = time.perf_counter()
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                             get_policy, MOE_POLICY, dev, counts, PB)
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                 PROMPT_LEN)]
+                   for _ in range(N_REQUESTS)]
+        key = f"{arch}_serve"
+        t0 = time.perf_counter()
+        launches[key], _, s = phase_serve(
+            torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev,
+            f"moe {arch}", SERVE, prompts, per_forward, 0)
+        res = {"serve_wall_s": time.perf_counter() - t0,
+               "prefill_tok_per_s": s["prefill_tok_per_s"],
+               "decode_tok_per_s": s["tok_per_s"],
+               "forwards": s["forwards"]}
+        if arch == MOE_FUSED:
+            one = Engine(cfg, qp, ServeConfig(**dict(SERVE, prefill_batch=1)),
+                         device=dev).generate(prompts)
+            batched = Engine(cfg, qp, ServeConfig(**SERVE),
+                             device=dev).generate(prompts)
+            print(f"[moe] {arch} prefill_batch=4 tokens == prefill_batch=1 "
+                  f"tokens: {batched == one}", flush=True)
+            check(batched == one, f"{arch}: prefill_batch=4 and 1 differ")
+            res["moe_block_card_vs_cpu"] = phase_moe_block(torch, cfg, qp,
+                                                           PM, T, dev)
+        res["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[moe] {arch} peak torch.cuda.max_memory_allocated "
+              f"{res['peak_allocated_gb']:.2f} GB (packing included)",
+              flush=True)
+        timing[arch] = phase_shape_timing(torch, qp, cfg, PB, Q, dev,
+                                          "moe timing")
+        res["expert_path"] = phase_expert_timing(torch, cfg, qp, PM, T, dev,
+                                                 "moe timing")
+        print(f"[moe] {arch} phase {21 if arch == MOE_FUSED else 23} took "
+              f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+        if arch == MOE_FUSED:
+            t_phase = time.perf_counter()
+            cfg2 = cfg.replace(attn_impl="fused")
+            lens = rng.integers(PROMPT_RANGE2[0], PROMPT_RANGE2[1] + 1,
+                                N_REQUESTS)
+            prompts2 = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                        for n in lens]
+            key = f"{arch}_fused_serve"
+            drops, restore = count_drops(torch, PM, T)
+            try:
+                t0 = time.perf_counter()
+                launches[key], attn[key], s2 = phase_serve(
+                    torch, cfg2, qp, Engine, ServeConfig, PB, PA, T, dev,
+                    f"moe {arch} fused", SERVE2, prompts2, per_forward,
+                    cfg.n_layers)
+                wall = time.perf_counter() - t0
+            finally:
+                restore()
+            chunk_fwds = max(drops["calls"] / cfg.n_layers, 1)
+            per_chunk = int(drops["dropped"]) / chunk_fwds
+            cap = PM._capacity(SERVE2["prefill_chunk"],
+                               cfg.n_experts_active, cfg.n_experts,
+                               cfg.capacity_factor)
+            print(f"[moe] {arch} fused: {per_chunk:.1f} of "
+                  f"{int(drops['choices']) / chunk_fwds:.0f} valid token "
+                  f"choices dropped a chunk forward, all layers (capacity "
+                  f"{cap} a expert a row; {chunk_fwds:.0f} chunk forwards)",
+                  flush=True)
+            check(per_chunk > 0, f"{arch}: no token choice was dropped")
+            key = f"{arch}_prefix_cache"
+            (launches[key], attn[key], prefix_stats,
+             attn_timing) = phase_prefix(
+                torch, np, cfg2, qp, Engine, ServeConfig, PB, PA, dev,
+                per_forward=per_forward, scfg=SERVE_PREFIX_MOE,
+                capacity=PREFIX_CAPACITY_MOE, tag="moe prefix", phase="22",
+                warm=False)     # the model ran path 2's traffic just now
+            out["fused"] = {
+                "serve_wall_s": wall,
+                "prefill_tok_per_s": s2["prefill_tok_per_s"],
+                "decode_tok_per_s": s2["tok_per_s"],
+                "dropped_choices_per_chunk_forward": per_chunk,
+                "prefix": prefix_stats, "warm_attn_timing": attn_timing}
+            print(f"[moe] {arch} fused phase 22 took "
+                  f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+        out[arch] = res
+        del qp
+        torch.cuda.empty_cache()
+    return launches, attn, timing, out
+
+
 def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
                  get_policy, Engine, ServeConfig, EngineSaturated, PB, PA, Q,
                  ops, dev):
@@ -1601,7 +1905,8 @@ def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
     by path, attention launches by path, results for the kernels line)."""
     launches, attn, out = {}, {}, {}
     qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
-                         get_policy, "paper_llama_mix", dev, KV8_PER_FORWARD)
+                         get_policy, "paper_llama_mix", dev, KV8_PER_FORWARD,
+                         PB)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
                for _ in range(N_REQUESTS)]
@@ -1618,7 +1923,7 @@ def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
     cfg2 = cfg.replace(attn_impl="fused")
     qp = pack_full_width(torch, cfg2, T, quantize_params, variant_counts,
                          get_policy, "extended_mix", dev,
-                         EXTENDED_PER_FORWARD)
+                         EXTENDED_PER_FORWARD, PB)
     (launches["prefix_cache"], attn["prefix_cache"], out["prefix"],
      out["warm_attn_timing"]) = phase_prefix(
         torch, np, cfg2, qp, Engine, ServeConfig, PB, PA, dev)
@@ -1650,6 +1955,7 @@ def main() -> None:
     from repro_torch.kernels import prefill_attn as PA
     from repro_torch.kernels import q8k_quant as PK
     from repro_torch.launch.serve import resolve_policy
+    from repro_torch.models import moe as PM
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import (Engine, EngineSaturated,
                                             ServeConfig)
@@ -1673,7 +1979,7 @@ def main() -> None:
     cfg = get_arch("tinyllama-1.1b")
     qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
                          get_policy, "paper_llama_mix", dev,
-                         {"q2_k": 45, "q3_k": 110})
+                         {"q2_k": 45, "q3_k": 110}, PB)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, PROMPT_LEN)]
                for _ in range(N_REQUESTS)]
@@ -1693,7 +1999,7 @@ def main() -> None:
     cfg2 = cfg.replace(attn_impl="fused")
     qp = pack_full_width(torch, cfg2, T, quantize_params, variant_counts,
                          get_policy, "extended_mix", dev,
-                         {"q3_k": 110, "q4_k": 44, "q6_k": 1})
+                         {"q3_k": 110, "q4_k": 44, "q6_k": 1}, PB)
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_RANGE2[0], PROMPT_RANGE2[1] + 1, N_REQUESTS)
     prompts2 = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
@@ -1741,7 +2047,7 @@ def main() -> None:
     for arch, policy, per_forward in PAPER_MODELS:
         cfg4 = get_arch(arch)
         qp = pack_full_width(torch, cfg4, T, quantize_params, variant_counts,
-                             get_policy, policy, dev, per_forward)
+                             get_policy, policy, dev, per_forward, PB)
         rng = np.random.default_rng(0)
         prompts4 = [[int(t) for t in rng.integers(0, cfg4.vocab_size,
                                                   PROMPT_LEN)]
@@ -1768,6 +2074,11 @@ def main() -> None:
         torch, np, cfg, T, quantize_params, variant_counts, get_policy,
         Engine, ServeConfig, EngineSaturated, PB, PA, Q, ops, dev)
 
+    # slice 7: the MoE family at full width, fused, prefix cache
+    launches7, attn7, timing7, slice7 = phase_slice7(
+        torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
+        Engine, ServeConfig, PB, PA, PM, Q, dev)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1781,7 +2092,8 @@ def main() -> None:
                    "policy_auto_hand_mix_serve": launches3l[v],
                    **{f"{a}_serve": launches4[a][v] for a in launches4},
                    **{p: launches5[p][v] for p in launches5},
-                   **{p: launches6[p][v] for p in launches6}}
+                   **{p: launches6[p][v] for p in launches6},
+                   **{p: launches7[p][v] for p in launches7}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -1800,6 +2112,14 @@ def main() -> None:
             kernels[-1]["extended_mix"] = timing2[v]
         if v in timing5:
             kernels[-1][f"{TIMED5}_decode_shapes"] = timing5[v]
+        for arch, t7 in timing7.items():
+            if v in t7:
+                kernels[-1][f"{arch}_decode_shapes"] = t7[v]
+        checked = {f"{a} {K}x{N}": {"weights": n, "max_abs_err": e}
+                   for (a, vv, K, N), (n, e) in PACKED_CHECKED.items()
+                   if vv == v}
+        if checked:
+            kernels[-1]["packed_weights_checked"] = checked
         if v in slice6["verify_timing"]:
             kernels[-1]["batched_verify"] = slice6["verify_timing"][v][
                 "verify"]
@@ -1811,9 +2131,10 @@ def main() -> None:
         "source": "src/repro_torch/csrc/prefill_attn.cu",
         "replaces": "src/repro/kernels/prefill_attn.py:80",
         "launches": attn1 + attn2 + sum(attn5.values())
-        + sum(attn6.values()),
+        + sum(attn6.values()) + sum(attn7.values()),
         "launches_by_path": {"paper_llama_mix": attn1,
-                             "extended_mix_fused": attn2, **attn5, **attn6},
+                             "extended_mix_fused": attn2, **attn5, **attn6,
+                             **attn7},
         "max_abs_err": max_abs["prefill_attn"],
         "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],
@@ -1821,7 +2142,9 @@ def main() -> None:
         "library_ms": attn_timing["library_ms"],
         "per": "the launches of one prefill-chunk forward (22 layers)",
         "bytes": attn_timing["bytes"], "flops": attn_timing["flops"],
-        "warm_prefix_chunk": slice6["warm_attn_timing"]})
+        "warm_prefix_chunk": slice6["warm_attn_timing"],
+        f"{MOE_FUSED}_warm_prefix_chunk": slice7["fused"][
+            "warm_attn_timing"]})
     q8k = q8k_timing["forward"]
     kernels.append({
         "name": "q8k_quantize", "route": "cuda",
@@ -1843,6 +2166,7 @@ def main() -> None:
     print(f"[search] summary: {json.dumps(search)}", flush=True)
     summary6 = {k: slice6[k] for k in ("kv8", "spec", "prefix")}
     print(f"[slice6] summary: {json.dumps(summary6)}", flush=True)
+    print(f"[slice7] summary: {json.dumps(slice7)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -4,8 +4,11 @@
 already converted to numpy (``jax.tree.map(np.asarray, params)``) and
 returns the same tree of torch tensors. A packed reference ``QTensor``
 (any object with ``variant``, ``shape`` and ``data``) becomes the port's
-``QTensor`` with its payloads moved byte for byte, with no repacking. The
-port never sees JAX: numpy is the only thing the two packages share.
+``QTensor`` with its payloads moved byte for byte, with no repacking: a
+stacked layer weight keeps its leading ``L`` axis on every payload, and
+an MoE expert stack its E*K-packed logical shape ``(E*K, N)`` beside
+it, as the port's ``quantize_params`` lays both out. The port never sees
+JAX: numpy is the only thing the two packages share.
 
 ``torch.from_numpy`` rejects the ml_dtypes bfloat16 that JAX hands numpy,
 so bf16 arrays move as a ``uint16`` view and are viewed back as bf16.

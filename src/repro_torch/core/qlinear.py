@@ -5,10 +5,14 @@ parameter tree, asks the ``QuantPolicy`` for each matmul weight's variant
 and packs it. A stacked layer weight ``(L, K, N)`` becomes one QTensor
 whose payloads keep the leading ``L`` axis, as the reference's ``vmap``
 gives (reduced tinyllama ``wq``: ``QTensor(q3_k, (256, 256))`` with
-``qs`` of shape ``(2, 64, 256)``).
+``qs`` of shape ``(2, 64, 256)``). An MoE expert stack ``(L, E, K, N)``
+packs along E*K, as the reference's: one QTensor of logical shape
+``(E*K, N)`` whose payloads keep the leading ``L`` axis, so the expert
+products dequantize each layer's stack at once (``models/moe.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -19,7 +23,7 @@ from repro_torch.core.policy import QuantPolicy
 # parameter-path fragments that are never quantized at serve time
 _NEVER = ("ln", "norm", "wpe", "b_", "bias", "router", "conv", "A_log", "D",
           "dt_bias", "pos", "wte")
-# the reference's expert-stack path fragment (packed along E*K there)
+# the path fragment of the MoE expert stacks, packed along E*K
 _EXPERT_STACK = "moe/w_"
 
 
@@ -52,9 +56,10 @@ def quantize_params(params: Dict[str, Any], policy: QuantPolicy,
 
     ``calib`` optionally maps parameter path -> per-K-column activation
     abs-max (``core.calibrate``); a path packed as q3_k_o picks its
-    sidecar rows with it, tiled to K and shared by the stacked layers, as
-    the reference does. MoE expert stacks (packed along E*K there) are not
-    ported: a stacked weight under ``moe/w_`` raises."""
+    sidecar rows with it, tiled to K (to E*K for an expert stack) and
+    shared by the stacked layers, as the reference does. The policy picks
+    an expert stack's variant from one expert's (K, N), as the
+    reference's."""
     report: Dict[str, Optional[str]] = {}
 
     def walk(node, prefix=""):
@@ -69,18 +74,33 @@ def quantize_params(params: Dict[str, Any], policy: QuantPolicy,
         report[path] = variant
         if variant is None:
             return node
-        if _EXPERT_STACK in path and node.dim() >= 3:
-            raise NotImplementedError(
-                f"{path}: MoE expert stacks are not ported yet")
+        expert = _EXPERT_STACK in path and node.dim() >= 3
+        keff = node.shape[-3] * K if expert else K
+        qfn = Q.quantize_fn(variant)
         stats = calib.get(path) if calib is not None else None
         if variant == "q3_k_o" and stats is not None:
             a = torch.as_tensor(stats, dtype=torch.float32).reshape(-1)
-            if K % a.numel() == 0:
-                a = a.repeat(K // a.numel()).to(node.device)
-                return Q.quantize_q3_k_o(node, act_absmax=a)
-        return Q.quantize_fn(variant)(node)
+            if keff % a.numel() == 0:
+                a = a.repeat(keff // a.numel()).to(node.device)
+                qfn = functools.partial(Q.quantize_q3_k_o, act_absmax=a)
+        if expert:
+            return _pack_expert_stack(qfn, node)
+        return qfn(node)
 
     return walk(params), report
+
+
+def _pack_expert_stack(qfn, w: torch.Tensor) -> Q.QTensor:
+    """(..., E, K, N) -> one QTensor of logical shape (E*K, N), its
+    payloads keeping the leading axes. Packed one leading index (layer)
+    at a time, so the temporaries are one layer's: the packers work per
+    (super-block, column), and the bytes equal packing the whole stack."""
+    *lead, E, K, N = w.shape
+    flat = w.reshape(-1, E * K, N)
+    layers = [qfn(flat[i]) for i in range(flat.shape[0])]
+    data = {k: torch.stack([t.data[k] for t in layers]).reshape(
+        *lead, *layers[0].data[k].shape) for k in layers[0].data}
+    return Q.QTensor(layers[0].variant, (E * K, N), data)
 
 
 def quantized_param_bytes(qparams) -> Dict[str, int]:

@@ -101,7 +101,20 @@ def _split_gqa(q, n_kv: int):
 
 def naive_attention(q, k, v, *, causal=True, window=None, scale=None,
                     softcap=None, q_positions=None, kv_positions=None):
-    """q: (B,S,H,D), k/v: (B,T,KH,D) -> (B,S,H,D). Materializes scores."""
+    """q: (B,S,H,D), k/v: (B,T,KH,D) -> (B,S,H,D). Materializes scores.
+
+    Each batch row runs alone: a batched einsum lets cuBLAS pick its
+    kernel by the batch size, and a row's bits then depend on how many
+    rows share the call (on the card, a prefill group of 4 gave a row
+    other bits than a group of 1)."""
+    if q.shape[0] > 1:
+        def row(pos, b):
+            return pos if pos is None or pos.shape[0] == 1 else pos[b:b + 1]
+        return torch.cat([naive_attention(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal,
+            window=window, scale=scale, softcap=softcap,
+            q_positions=row(q_positions, b),
+            kv_positions=row(kv_positions, b)) for b in range(q.shape[0])])
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     scale = scale or (1.0 / math.sqrt(D))

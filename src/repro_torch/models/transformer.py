@@ -1,9 +1,11 @@
-"""Dense transformer: init, chunked prefill and decode against a KV ring.
+"""Transformer: init, chunked prefill and decode against a KV ring.
 
 Counterpart of ``repro.models.transformer`` for the dense llama family
 (RMSNorm, split-half RoPE, GQA, SwiGLU; optionally qk-norm, a sliding
-window and an LM head tied to the embedding) and the gpt2 family
-(LayerNorm, learned positions, fused qkv with biases, GELU MLP).
+window and an LM head tied to the embedding), the gpt2 family
+(LayerNorm, learned positions, fused qkv with biases, GELU MLP) and the
+MoE family (the dense block with a top-k expert layer, ``models/moe.py``,
+in place of the MLP).
 Parameters are a plain dict tree with the reference's paths and stacked
 layer axis; a weight may be a packed ``QTensor`` whose payloads carry
 that axis too.
@@ -40,14 +42,17 @@ from repro_torch.core.quantize import QTensor, _div, _safe_inv
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
-_KV_FAMILIES = ("dense", "gpt2")
+_PORTED_FAMILIES = ("dense", "gpt2", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port has the dense llama family and gpt2."""
+    """The port has the dense llama family, gpt2 and MoE; vlm, audio,
+    ssm and hybrid are ROADMAP queue 1 item 5."""
     unported = [f for f, on in (
-        (f"family {cfg.family!r}", cfg.family not in _KV_FAMILIES),
+        (f"family {cfg.family!r} (ROADMAP queue 1 item 5)",
+         cfg.family not in _PORTED_FAMILIES),
         (f"act {cfg.act!r}", cfg.act not in ("swiglu", "gelu")),
         (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned"))
     ) if on]
@@ -102,15 +107,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         if cfg.qk_norm:
             attn["q_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
             attn["k_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
-    if cfg.act == "gelu":
-        mlp = {"c_fc": dense_init((Lc, d, f), d), "b_fc": zeros((Lc, f)),
-               "c_proj": dense_init((Lc, f, d), f), "b_proj": zeros((Lc, d))}
+    blk = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn}
+    if cfg.family == "moe":
+        E, fe = cfg.n_experts, cfg.moe_d_ff
+        blk["moe"] = {"router": dense_init((Lc, d, E), d),
+                      "w_gate": dense_init((Lc, E, d, fe), d),
+                      "w_up": dense_init((Lc, E, d, fe), d),
+                      "w_down": dense_init((Lc, E, fe, d), fe)}
+    elif cfg.act == "gelu":
+        blk["mlp"] = {"c_fc": dense_init((Lc, d, f), d),
+                      "b_fc": zeros((Lc, f)),
+                      "c_proj": dense_init((Lc, f, d), f),
+                      "b_proj": zeros((Lc, d))}
     else:
-        mlp = {"w_gate": dense_init((Lc, d, f), d),
-               "w_up": dense_init((Lc, d, f), d),
-               "w_down": dense_init((Lc, f, d), f)}
-    p["layers"] = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn,
-                   "mlp": mlp}
+        blk["mlp"] = {"w_gate": dense_init((Lc, d, f), d),
+                      "w_up": dense_init((Lc, d, f), d),
+                      "w_down": dense_init((Lc, f, d), f)}
+    p["layers"] = blk
     p["ln_f"] = norm_p(d, stacked=False)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((d, V), d)
@@ -150,6 +163,10 @@ def _rope(cfg: ModelConfig, positions):
 
 
 def _mlp(m_in, lp, cfg: ModelConfig, impl):
+    """The block's MLP: the MoE layer (its aux loss dropped, as the
+    reference's decode and prefill drop it), GELU or SwiGLU."""
+    if cfg.family == "moe":
+        return MOE.moe_block(m_in, lp["moe"], cfg)[0]
     if cfg.act == "gelu":
         return L.gelu_mlp(m_in, lp["mlp"], impl=impl)
     return L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
@@ -607,8 +624,8 @@ def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
 def forward_seq(params, cfg: ModelConfig, *, tokens):
     """Full-sequence causal forward of tokens (B, S) at positions 0..S-1,
     with no cache. Returns logits (B, S, V) in f32 (the reference's first
-    output; the dense family has no aux loss, and the port no
-    ``want_cache``)."""
+    output; the port returns no MoE aux loss, which only training reads,
+    and has no ``want_cache``)."""
     _check_family(cfg)
     impl = cfg.kernel_impl
     B, S = tokens.shape

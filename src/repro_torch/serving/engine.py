@@ -1,10 +1,13 @@
 """Continuous-batching serving engine with batched chunked prefill.
 
 Counterpart of ``repro.serving.engine``: greedy or temperature sampling,
-speculative decoding, the prefix cache and SLO admission, for the dense
-KV-ring families on one device (``tp=1``; tensor parallelism is ROADMAP
-queue 1 item 7 and is rejected at construction). Its scheduling is the
-reference's:
+speculative decoding, the prefix cache and SLO admission, for the
+KV-ring families the port has (dense, gpt2, MoE) on one device (``tp=1``;
+tensor parallelism is ROADMAP queue 1 item 7 and is rejected at
+construction). As in the reference, construction runs one validation
+pass over the family x feature matrix (``models/state.py``'s
+``validate_serve_features``) and every cache operation goes through the
+family's ``DecodeState`` adapter. Its scheduling is the reference's:
 
 * ``batched chunked prefill``: at each chunk boundary the scheduler drains
   up to ``prefill_batch`` queued requests into the free slots at once,
@@ -59,8 +62,13 @@ reference's:
 
 Batched admission is token-identical to sequential admission because
 every matmul computes each output row on its own (see
-``kernels/bfp_matmul.py``). ``generate_reference`` keeps the host-driven
-loop (one step per token, same math) as the parity oracle, and
+``kernels/bfp_matmul.py``), and the naive attention and the MoE layer
+run a batch row at a time. For the MoE family this holds where the
+groups pad to the same chunk length: the layer's capacity follows the
+chunk length, so prompts of different lengths grouped otherwise can
+drop other token choices, as in the reference. ``generate_reference``
+keeps the host-driven loop (one step per token, same math) as the
+parity oracle, and
 ``generate_spec_reference`` does the same for speculation, with the
 acceptance re-implemented in numpy on the host.
 
@@ -95,6 +103,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantize import _div
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.state import DecodeState, validate_serve_features
 from repro_torch.serving.drafters import make_drafter
 from repro_torch.serving.prefix_cache import PrefixCache
 
@@ -215,7 +224,11 @@ class Engine:
                     f"ServeConfig.{field}={getattr(serve_cfg, field)!r} is "
                     f"not ported yet ({where}); this engine serves on one "
                     f"device without it (leave it at {off!r})")
+        validate_serve_features(
+            cfg, tp=serve_cfg.tp, drafter=serve_cfg.drafter is not None,
+            prefix_cache=serve_cfg.prefix_cache)
         T._check_family(cfg)
+        self._state = DecodeState(cfg)
         self.cfg = cfg
         self.params = params
         self.scfg = serve_cfg
@@ -254,7 +267,7 @@ class Engine:
                 page -= 1
             self._page = page
             cap = max(2, int(serve_cfg.prefix_bytes)
-                      // T.cache_page_bytes(cfg, page))
+                      // self._state.page_bytes(page))
             self._prefix = PrefixCache(page, cap)
         self._cache = None
         self._gen = torch.Generator(device=self.device)
@@ -263,7 +276,7 @@ class Engine:
 
     # -- device programs -----------------------------------------------------
     def _new_cache(self, B: int):
-        return T.init_cache(self.cfg, B, self._T, device=self.device)
+        return self._state.init(B, self._T, device=self.device)
 
     def _prefill_chunk_impl(self, gcache, tokens, start, lengths,
                             last_logits):
@@ -462,7 +475,7 @@ class Engine:
             positions = pos[:, None] + cols
             valid = act[:, None] & ((cols == 0) | spec_eff[:, None])
             slots = positions % self._T
-            snap = T.cache_ring_snapshot(self._cache, slots)
+            snap = self._state.ring_snapshot(self._cache, slots)
             logits = self._verify_impl(x, positions, valid)
             acc, fin = self._accept_impl(logits, drafts, spec_eff,
                                          self._draw)
@@ -484,7 +497,7 @@ class Engine:
                                           out[bidx, oidx])
             # un-write the rejected drafts (the accepted 1 + acc stay)
             keep = torch.where(act, 1 + acc, torch.zeros_like(acc))
-            T.cache_ring_rewind(self._cache, snap, slots, keep)
+            self._state.ring_rewind(self._cache, snap, slots, keep)
             n_gen = n_gen + e
             pos = pos + e
             last = emit.gather(1, (e - 1).clamp(0, S - 1)[:, None])[:, 0]
@@ -661,15 +674,22 @@ class Engine:
                                    req.prompt + [first_tok])
         req._emit(first_tok)
 
-    def _group_shape(self, lens: List[int]):
+    def _group_shape(self, lens: List[int], whole: bool = False):
         """(padded len P, chunk len C, padded group size Gp). P is the group
         max rounded up to ``prefill_bucket`` and, past the chunk length, to
         a multiple of it; the group pads to a power of two capped at
-        ``prefill_batch``."""
+        ``prefill_batch``.
+
+        ``whole`` keeps whole chunks. The engine asks for it for a warm
+        group (``lens`` past a horizon s0 > 0, a multiple of the chunk)
+        of a family whose capacity follows the chunk length (MoE), as a
+        cold prefill of the same prompts has past its first chunk: a
+        shorter chunk could drop token choices the cold one keeps. Other
+        families prefill a short suffix in a short chunk."""
         b = max(self.scfg.prefill_bucket, 1)
         maxb = max(-(-n // b) * b for n in lens)
         C = self._chunk
-        if maxb > C:
+        if whole or maxb > C:
             P = -(-maxb // C) * C
         else:
             P = C = maxb
@@ -729,7 +749,7 @@ class Engine:
             pos[j] = p0 + ar
         idx_d = torch.as_tensor(idx, device=self.device)
         pages = {k: v[:, idx_d] for k, v in self._pool.items()}
-        T.cache_scatter_pages(gcache, pages, rows, cols, pos)
+        self._state.scatter_pages(gcache, pages, rows, cols, pos)
 
     def _insert_prefix_pages(self, gcache, reqs, lens) -> None:
         """Record every request's full prompt pages in the radix tree and
@@ -759,15 +779,15 @@ class Engine:
         for j, (row, pidx, p0) in enumerate(jobs):
             idx[j], rows[j] = pidx, row
             cols[j] = p0 + ar           # full in-ring pages never wrap
-        pages = T.cache_gather_pages(gcache, rows, cols)
+        pages = self._state.gather_pages(gcache, rows, cols)
         idx_d = torch.as_tensor(idx, device=self.device)
         for k, pool in self._pool.items():
             pool[:, idx_d] = pages[k]
 
     def _ensure_pool(self) -> None:
         if self._pool is None:
-            self._pool = T.cache_page_pool(self.cfg, self._prefix.capacity,
-                                           self._page, device=self.device)
+            self._pool = self._state.page_pool(self._prefix.capacity,
+                                               self._page, device=self.device)
 
     @property
     def prefix_page(self) -> Optional[int]:
@@ -798,7 +818,9 @@ class Engine:
         s0, jobs = 0, []
         if self._prefix is not None:
             s0, jobs = self._match_prefixes(reqs)
-        P, C, Gp = self._group_shape([n - s0 for n in lens])
+        P, C, Gp = self._group_shape(
+            [n - s0 for n in lens],
+            whole=s0 > 0 and self._state.caps.capacity_follows_chunk)
         toks = np.zeros((Gp, s0 + P), np.int64)
         lengths = np.zeros(Gp, np.int64)            # dummy rows: length 0
         for i, r in enumerate(reqs):
@@ -823,7 +845,7 @@ class Engine:
         free_arr = np.full(Gp, self._B, np.int64)
         free_arr[:G] = slots
         idx = self._bind_slots(firsts, budgets, free_arr)
-        T.cache_set_slots(self._cache, gcache, idx)
+        self._state.set_slots(self._cache, gcache, idx)
         if self._prefix is not None:
             self._insert_prefix_pages(gcache, reqs, lens)
         self.stats["host_syncs"] += 1
@@ -1110,7 +1132,7 @@ class Engine:
                 positions = self._pos[:, None] + cols
                 valid = act[:, None] & ((cols == 0) | spec_eff[:, None])
                 slots_d = torch.as_tensor(positions % self._T, device=dev)
-                snap = T.cache_ring_snapshot(self._cache, slots_d)
+                snap = self._state.ring_snapshot(self._cache, slots_d)
                 logits = self._verify_impl(
                     torch.as_tensor(x, device=dev),
                     torch.as_tensor(positions, device=dev),
@@ -1156,8 +1178,8 @@ class Engine:
                     e = np.where(hit.any(1), np.minimum(e, first + 1), e)
                 e = np.where(act, e, 0)
                 keep = np.where(act, 1 + acc, 0)
-                T.cache_ring_rewind(self._cache, snap, slots_d,
-                                    torch.as_tensor(keep, device=dev))
+                self._state.ring_rewind(self._cache, snap, slots_d,
+                                        torch.as_tensor(keep, device=dev))
                 ds = self._drafter.update(ds, torch.as_tensor(emit,
                                                               device=dev),
                                           torch.as_tensor(e, device=dev))

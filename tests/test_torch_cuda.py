@@ -19,6 +19,10 @@ Tolerances, relative to the output's max magnitude:
     2**-7, one bf16 ulp at the max.
   * Q8_K quantization: byte for byte, against the plain version on the
     card and on the CPU (every step is correctly rounded on both).
+  * the MoE layer (``models/moe.py``, plain torch ops, no kernel of its
+    own) on the card against the same call on the CPU, bf16 output:
+    2**-6, two bf16 ulps at the max (cuBLAS and the CPU sum the bf16
+    expert products in another order, and the output rounds again).
 """
 import inspect
 
@@ -26,11 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_arch
 from repro_torch.core import quantize as PQ
+from repro_torch.core.policy import get_policy
+from repro_torch.core.qlinear import quantize_params
 from repro_torch.kernels import bfp_matmul as PB
 from repro_torch.kernels import ops as PO
 from repro_torch.kernels import prefill_attn as PA
 from repro_torch.kernels import q8k_quant as PK
+from repro_torch.models import moe as PM
+from repro_torch.models import transformer as PT
 
 torch.set_num_threads(2)
 
@@ -517,3 +526,33 @@ def test_ring_and_page_copies_on_the_card_equal_the_cpu(cuda_device):
             out[str(dev)] = (snap.cpu(), pages.cpu(), a.cpu())
         for x, y in zip(out["cpu"], out[str(cuda_device)]):
             assert _bytes_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 1.0])
+def test_moe_block_on_the_card_equals_the_cpu(cuda_device, cf):
+    """Reduced olmoe's layer 0, packed under default_serve_mix (the E*K
+    expert stacks dequantized at use), on a (3, 64, d) bf16 input: the
+    card's output equals the CPU's at 2**-6 and the routing (expert,
+    slot, keep) exactly; each batch row alone gives its row bit for bit."""
+    cfg = get_arch("olmoe-1b-7b", reduced=True).replace(capacity_factor=cf)
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    qp, _ = quantize_params(params, get_policy("default_serve_mix"))
+    lp = PT._layer(qp["layers"], 0)["moe"]
+    lg = {k: v.to(cuda_device) for k, v in lp.items()}
+    x = torch.randn(3, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    y_cpu, aux_cpu = PM.moe_block(x, lp, cfg)
+    y, aux = PM.moe_block(x.to(cuda_device), lg, cfg)
+    assert _rel_err(y.cpu(), y_cpu) <= 2.0 ** -6
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * abs(float(aux_cpu))
+    k, E = cfg.n_experts_active, cfg.n_experts
+    C = PM._capacity(64, k, E, cf)
+    _, ti_card, _ = PM.route(x.to(cuda_device), lg["router"], k)
+    _, ti_cpu, _ = PM.route(x, lp["router"], k)
+    for a, b in zip(PM.dispatch(ti_card, E, C), PM.dispatch(ti_cpu, E, C)):
+        assert torch.equal(a.cpu(), b)
+    for b in range(3):
+        yb, _ = PM.moe_block(x[b:b + 1].to(cuda_device), lg, cfg)
+        assert torch.equal(yb[0], y[b]), b

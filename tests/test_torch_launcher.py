@@ -126,3 +126,20 @@ def test_spec_prefix_and_slo_flags_reach_the_engine(calls, capsys):
                                 "batched"])
     assert eng.scfg.draft_verify == "batched"
     assert eng.stats["draft_tokens"] > 0
+
+
+def test_moe_arch_serves_under_the_default_policy(calls, capsys):
+    """``--arch olmoe-1b-7b --reduced`` under the default policy
+    (default_serve_mix): the expert stacks are packed along E*K and
+    counted once a layer, and every request gets its tokens."""
+    eng, res = serve.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
+                           "cpu", "--requests", "3", "--slots", "2",
+                           "--tokens", "6", "--cache-len", "64"])
+    assert eng.cfg.family == "moe"
+    wg = eng.params["layers"]["moe"]["w_gate"]
+    L, E, d = eng.cfg.n_layers, eng.cfg.n_experts, eng.cfg.d_model
+    assert isinstance(wg, QTensor) and wg.variant == "q3_k"
+    assert wg.shape == (E * d, eng.cfg.moe_d_ff) and wg.num_layers == L
+    assert "{'q3_k': 8, 'q2_k': 5} matmuls" in capsys.readouterr().out
+    assert calls["matmuls"] > 0
+    assert len(res) == 3 and all(len(t) == 6 for t in res.values())
