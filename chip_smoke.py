@@ -188,6 +188,32 @@ Phases, each of which exits nonzero on failure:
    the CPU check: 65 q2_k + 160 q3_k matmuls, 65 q2_k + 64 q3_k launches
    a forward, generate == generate_reference, timings as phase 21.
    Phases 21-23 each print their wall time.
+24. recurrent, slice 8: full-width mamba2-2.7b (64 Mamba2 layers, d 2560,
+   SSM state 128, LM head N = 50280) from random weights (seeded), packed
+   with default_serve_mix on the card one layer at a time (1 q2_k + 128
+   q3_k matmuls, each packed weight checked as above). Path 2's traffic
+   (8 requests of 256-512-token prompts, 32 new tokens, 128-token chunks,
+   4 slots, a 1024-position cache): every forward launches 1 q2_k + 128
+   q3_k kernels and no attention kernel, greedy tokens equal
+   generate_reference, and an engine with prefill_batch=1 gives
+   prefill_batch=4's tokens. Layer 0's mamba2_forward on the card equals
+   the same call on the CPU at ``TOL_SSM``. The peak
+   ``max_memory_allocated``, decode and prefill tok/s, each packed
+   (variant, K, N)'s decode forward timed as phase 4 times a variant,
+   and, for one prefill-chunk forward, one decode step and one chunk
+   forward's SSD scans, the span between CUDA events beside their
+   kernels' device time and the kernels of most device time
+   (``torch.profiler``) and the matmul kernels' time are printed.
+25. recurrent, slice 8: full-width zamba2-1.2b (38 Mamba2 layers, d 2048,
+   and a shared attention block at width 4096 after every 6 layers) as
+   phase 24: 3 q2_k + 82 q3_k matmuls packed, 13 q2_k + 112 q3_k launches
+   a forward (the shared block's 8 matmuls at each of its 6
+   applications).
+26. checkpoint prefix cache, slice 8: zamba2-1.2b on phase 18's
+   shared-prefix queue with a 1 GiB pool (20 pages of one 128-token
+   chunk each: SSM state, conv tail and ring): cache off, then on twice;
+   the same tokens, 13 + 112 launches a forward, at least 4 hits then 8,
+   and the cold and warm prefill tok/s printed.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -312,6 +338,24 @@ PREFIX_CAPACITY_MOE = 256
 TOL_MOE = 2.0 ** -6     # one layer's moe_block, card vs CPU, bf16 out: the
                         # bf16 expert products summed in another order, and
                         # the output rounded again (tests/test_torch_cuda.py)
+# slice 8: the recurrent families at full width under default_serve_mix,
+# path 2's traffic (no attention kernel: zamba2's shared block prefills
+# through the naive attention, as the reference's); (arch, variant_counts,
+# matmul launches a forward): zamba2's shared block is packed once and
+# runs at each of its six applications
+REC_POLICY = "default_serve_mix"
+REC_MODELS = (("mamba2-2.7b", {"q2_k": 1, "q3_k": 128},
+               {"q2_k": 1, "q3_k": 128}),
+              ("zamba2-1.2b", {"q2_k": 3, "q3_k": 82},
+               {"q2_k": 13, "q3_k": 112}))
+REC_PREFIX = "zamba2-1.2b"      # phase 18's shared-prefix queue, phase 26
+# a checkpoint page is one 128-token chunk: 53 MB on zamba2 (39.8 MB of
+# SSM state, 1 MB of conv tail, 12.6 MB of ring for 6 applications)
+SERVE_PREFIX_REC = dict(SERVE_PREFIX, prefix_bytes=1 << 30)
+PREFIX_CAPACITY_REC = 20
+TOL_SSM = 2.0 ** -6     # layer 0's mamba2_forward, card vs CPU, bf16 out:
+                        # in_proj's bf16 output rounds differently where
+                        # the f32 sums differ, and the scan carries it on
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -1105,15 +1149,21 @@ def _packed(tree):
             yield v
 
 
-def _kernel_weights(qp, cfg):
+def _kernel_weights(qp, cfg, uses=False):
     """(variant, K, N) -> every packed weight of that shape that the
     matmul kernel serves, one a layer; the MoE expert stacks, which no
-    kernel serves, are left out."""
+    kernel serves, are left out. zamba2's shared block is one weight each,
+    or with ``uses`` one each an application: a forward's launches."""
     groups = {}
     layers = {k: v for k, v in qp["layers"].items() if k != "moe"}
     for t in _packed(layers):
         groups.setdefault((t.variant, *t.shape), []).extend(
             t.layer(i) for i in range(cfg.n_layers))
+    # one application after each full group of hybrid_attn_every layers
+    apps = (cfg.n_layers // cfg.hybrid_attn_every
+            if uses and cfg.family == "hybrid" else 1)
+    for t in _packed(qp.get("shared", {})):
+        groups.setdefault((t.variant, *t.shape), []).extend([t] * apps)
     if hasattr(qp.get("lm_head"), "variant"):
         t = qp["lm_head"]
         groups.setdefault((t.variant, *t.shape), []).append(t)
@@ -1156,7 +1206,7 @@ def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag):
     """One decode forward's launches (M = max_slots) of each packed
     (variant, K, N) of the model that the kernel serves, timed as phase 4
     times a variant's (each checked by ``check_shapes`` at packing)."""
-    groups = _kernel_weights(qp, cfg)
+    groups = _kernel_weights(qp, cfg, uses=True)
     g = torch.Generator(device=dev).manual_seed(14)
     out = {}
     for (variant, K, N), ts in sorted(groups.items()):
@@ -1898,6 +1948,232 @@ def phase_slice7(torch, np, get_arch, T, quantize_params, variant_counts,
     return launches, attn, timing, out
 
 
+def phase_ssm_layer(torch, cfg, qp, M2, T, dev):
+    """Layer 0's mamba2_forward on the card against the same call on the
+    CPU (the packed layer moved there), at a prefill chunk's shape with a
+    carried state and a short row."""
+    lp = T._layer(qp["layers"], 0)["ssm"]
+    cpu = {k: v.to("cpu") for k, v in lp.items()}
+    dd = M2.ssm_dims(cfg)
+    g = torch.Generator().manual_seed(24)
+    B, C = SERVE2["prefill_batch"], SERVE2["prefill_chunk"]
+    x = torch.randn(B, C, cfg.d_model, generator=g).bfloat16()
+    conv = torch.randn(B, cfg.ssm_conv_width - 1, dd["conv_ch"],
+                       generator=g).bfloat16()
+    state = 0.1 * torch.randn(B, dd["n_heads"], dd["head_dim"], dd["state"],
+                              generator=g)
+    valid = torch.arange(C)[None] < torch.tensor([C, C, 77, C])[:, None]
+    args = dict(conv_state=conv, ssm_state=state, valid=valid)
+    y, (c1, s1) = M2.mamba2_forward(
+        x.to(dev), lp, cfg, **{k: v.to(dev) for k, v in args.items()})
+    y_cpu, (c_cpu, s_cpu) = M2.mamba2_forward(x, cpu, cfg, **args)
+    keep = valid[..., None]
+    err = rel_err(torch.where(keep, y.cpu(), 0), torch.where(keep, y_cpu, 0))
+    err_c = rel_err(c1.cpu(), c_cpu)
+    err_s = rel_err(s1.cpu(), s_cpu)
+    print(f"[recurrent] {cfg.name} layer-0 mamba2_forward {tuple(x.shape)} "
+          f"bf16, card vs CPU: out rel {err:.2e}, conv tail rel {err_c:.2e}, "
+          f"SSM state rel {err_s:.2e} (tol {TOL_SSM:.1e})", flush=True)
+    check(max(err, err_c, err_s) <= TOL_SSM
+          and bool(torch.isfinite(y).all()),
+          f"{cfg.name}: mamba2_forward on the card disagrees with the CPU")
+    return {"out": err, "conv": err_c, "state": err_s}
+
+
+def _profile(torch, fn, n=8):
+    """One call of ``fn`` under ``torch.profiler``: (device ms of all its
+    kernels and copies, their count, the ``n`` names of most device time
+    as [(name, launches, ms)]), or None where the profiler shows no
+    device time (it is untried on this machine)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in rows)
+    if total <= 0:
+        return None
+    return (total / 1e3, sum(e.count for e in rows),
+            [(e.key[:72], e.count, dev_us(e) / 1e3) for e in rows[:n]])
+
+
+def phase_recurrent_breakdown(torch, cfg, qp, M2, T, PB, dev, tag):
+    """Where one prefill-chunk forward (path 2's (4, 128)), one decode
+    step (B = 4) and the SSD scans of one chunk forward (every layer's,
+    alone) spend their time: the span between CUDA events behind a spin
+    kernel (the stream holds about a thousand queued launches, so a call
+    of more launches than that also counts host time), the device time
+    of their kernels by ``torch.profiler``, and the matmul launches of
+    the chunk and the step by CUDA events."""
+    B, C = SERVE2["prefill_batch"], SERVE2["prefill_chunk"]
+    dd = M2.ssm_dims(cfg)
+    H, P, N = dd["n_heads"], dd["head_dim"], dd["state"]
+    g = torch.Generator(device=dev).manual_seed(25)
+    cache = T.init_cache(cfg, B, SERVE2["cache_len"], device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g, device=dev)
+    lengths = torch.full((B,), C, device=dev)
+    pos = torch.full((B,), C, device=dev)
+    x = torch.randn(B, C, H, P, generator=g, device=dev)
+    dt = torch.rand(B, C, H, generator=g, device=dev) * 0.1
+    A = -torch.rand(H, generator=g, device=dev)
+    Bm = torch.randn(B, C, N, generator=g, device=dev)
+    Cm = torch.randn(B, C, N, generator=g, device=dev)
+    s0 = torch.zeros(B, H, P, N, device=dev)
+    calls = {
+        "chunk": lambda: T.prefill_chunk(qp, cfg, cache, tokens=toks,
+                                         start=0, lengths=lengths),
+        "decode": lambda: T.decode_step(qp, cfg, cache, tokens=toks[:, 0],
+                                        position=pos),
+        "ssd_scan": lambda: [M2._ssd_chunk_scan(x, dt, A, Bm, Cm, s0,
+                                                cfg.ssm_chunk)
+                             for _ in range(cfg.n_layers)]}
+    out = {}
+    for what, fn in calls.items():
+        out[f"{what}_event_ms"] = _device_ms(torch, fn, 3)
+        prof = _profile(torch, fn)
+        out[f"{what}_kernel_ms"], out[f"{what}_launches"], out[
+            f"{what}_top_kernels"] = prof or (None, None, None)
+    weights = _kernel_weights(qp, cfg, uses=True)
+    for what, M in (("chunk", B * C), ("decode", B)):
+        xs = {K: torch.randn(M, K, generator=g, device=dev).bfloat16()
+              for (_, K, _) in weights}
+        # the head runs on one row a sequence in a chunk forward
+        out[f"{what}_matmul_ms"] = _device_ms(torch, lambda: [
+            PB.bfp_matmul_cuda(xs[K][:B] if N_ == cfg.vocab_size else xs[K],
+                               t)
+            for (_, K, N_), ts in weights.items() for t in ts], 3)
+    for what, name in (("chunk", "prefill-chunk forward (4, 128)"),
+                       ("decode", "decode step (B=4)"),
+                       ("ssd_scan", f"SSD scans of {cfg.n_layers} layers")):
+        top = out[f"{what}_top_kernels"]
+        print(f"[{tag}] {cfg.name} {name}: {out[what + '_event_ms']:.3f} ms "
+              f"between CUDA events; kernels " + (
+                  "not measured (the profiler shows no device time)"
+                  if top is None else
+                  f"{out[what + '_kernel_ms']:.3f} ms of device time in "
+                  f"{out[what + '_launches']} launches (torch.profiler)")
+              + (f", of it matmul kernels {out[what + '_matmul_ms']:.3f} ms "
+                 "(CUDA events)" if what + "_matmul_ms" in out else "")
+              + ("" if top is None else "; most device time: " + "; ".join(
+                  f"{k} x{c} {ms:.3f} ms" for k, c, ms in top[:5])),
+              flush=True)
+    return out
+
+
+def phase_recurrent_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB,
+                           dev, per_forward):
+    """Phase 26: phase 18's shared-prefix queue on a recurrent model with
+    a 1 GiB checkpoint pool (pages pinned to the 128-token chunk): cache
+    off, then on twice; the same tokens, hits, and the warm and cold
+    prefill rates. Returns (matmul launches, stats)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
+    prompts = [shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(n))]
+        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
+                              N_REQUESTS)]
+    scfg = SERVE_PREFIX_REC
+    off = Engine(cfg, qp, ServeConfig(**scfg), device=dev)
+    res_off, s_off, _, _ = _served(torch, off, prompts, PB, warm=False)
+    on = Engine(cfg, qp, ServeConfig(**scfg, prefix_cache=True), device=dev)
+    check(on._page == scfg["prefill_chunk"]
+          and on._prefix.capacity == PREFIX_CAPACITY_REC,
+          f"checkpoint pool of {on._prefix.capacity} pages of {on._page}, "
+          f"expected {PREFIX_CAPACITY_REC} of {scfg['prefill_chunk']}")
+    runs, launches = [], {v: 0 for v in PB.VARIANTS}
+    for i in range(2):
+        res, s, lw, _ = _served(torch, on, prompts, PB, warm=False)
+        runs.append((res, s))
+        _check_launches(f"recurrent prefix run {i + 1}", PB, lw, s,
+                        per_forward)
+        launches = {v: launches[v] + lw[v] for v in PB.VARIANTS}
+        print(f"[recurrent prefix] {cfg.name} run {i + 1}: "
+              f"{_engine_rates(s)}, prefix_hits {s['prefix_hits']}, "
+              f"prefix_tokens_reused {s['prefix_tokens_reused']} of "
+              f"{s['prefill_tokens']} prompt tokens, "
+              f"{s['prefill_forwards']} prefill-chunk forwards, evictions "
+              f"{s['prefix_evictions']}, insert drops "
+              f"{s['prefix_insert_drops']}", flush=True)
+    print(f"[recurrent prefix] {cfg.name} cache off: {_engine_rates(s_off)}"
+          f", {s_off['prefill_forwards']} prefill-chunk forwards",
+          flush=True)
+    check(runs[0][0] == res_off and runs[1][0] == res_off,
+          f"{cfg.name}: checkpoint prefix cache tokens differ from off")
+    check(runs[0][1]["prefix_hits"] >= 4 and runs[1][1]["prefix_hits"] == 8,
+          f"{cfg.name}: too few checkpoint hits")
+    check(all(len(t) == scfg["max_new_tokens"] for t in res_off),
+          f"{cfg.name}: a request did not get its tokens")
+    print(f"[recurrent prefix] {cfg.name} prefill tok/s: off "
+          f"{s_off['prefill_tok_per_s']:.1f}, cold "
+          f"{runs[0][1]['prefill_tok_per_s']:.1f}, warm "
+          f"{runs[1][1]['prefill_tok_per_s']:.1f}; phase 26 took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches, {"off": s_off, "cold": runs[0][1], "warm": runs[1][1]}
+
+
+def phase_slice8(torch, np, get_arch, T, M2, quantize_params, variant_counts,
+                 get_policy, Engine, ServeConfig, PB, PA, Q, dev):
+    """Phases 24-26: the recurrent families at full width. Returns
+    (matmul launches by path, per-shape matmul timing by arch, results
+    for the summary line)."""
+    launches, timing, out = {}, {}, {}
+    for arch, counts, per_forward in REC_MODELS:
+        t_phase = time.perf_counter()
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                             get_policy, REC_POLICY, dev, counts, PB)
+        rng = np.random.default_rng(0)
+        lens = rng.integers(PROMPT_RANGE2[0], PROMPT_RANGE2[1] + 1,
+                            N_REQUESTS)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                   for n in lens]
+        t0 = time.perf_counter()
+        launches[f"{arch}_serve"], _, s = phase_serve(
+            torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev,
+            f"recurrent {arch}", SERVE2, prompts, per_forward, 0)
+        res = {"serve_wall_s": time.perf_counter() - t0,
+               "prefill_tok_per_s": s["prefill_tok_per_s"],
+               "decode_tok_per_s": s["tok_per_s"],
+               "forwards": s["forwards"]}
+        one = Engine(cfg, qp, ServeConfig(**dict(SERVE2, prefill_batch=1)),
+                     device=dev).generate(prompts)
+        batched = Engine(cfg, qp, ServeConfig(**SERVE2),
+                         device=dev).generate(prompts)
+        print(f"[recurrent] {arch} prefill_batch=4 tokens == prefill_batch=1 "
+              f"tokens: {batched == one}", flush=True)
+        check(batched == one, f"{arch}: prefill_batch=4 and 1 differ")
+        res["mamba2_forward_card_vs_cpu"] = phase_ssm_layer(torch, cfg, qp,
+                                                            M2, T, dev)
+        res["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[recurrent] {arch} peak torch.cuda.max_memory_allocated "
+              f"{res['peak_allocated_gb']:.2f} GB (packing included)",
+              flush=True)
+        res["breakdown"] = phase_recurrent_breakdown(
+            torch, cfg, qp, M2, T, PB, dev, "recurrent timing")
+        timing[arch] = phase_shape_timing(torch, qp, cfg, PB, Q, dev,
+                                          "recurrent timing")
+        print(f"[recurrent] {arch} phase "
+              f"{24 if arch == 'mamba2-2.7b' else 25} took "
+              f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+        if arch == REC_PREFIX:
+            launches[f"{arch}_prefix_cache"], res["prefix"] = \
+                phase_recurrent_prefix(torch, np, cfg, qp, Engine,
+                                       ServeConfig, PB, dev, per_forward)
+        out[arch] = res
+        del qp
+        torch.cuda.empty_cache()
+    return launches, timing, out
+
+
 def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
                  get_policy, Engine, ServeConfig, EngineSaturated, PB, PA, Q,
                  ops, dev):
@@ -1955,6 +2231,7 @@ def main() -> None:
     from repro_torch.kernels import prefill_attn as PA
     from repro_torch.kernels import q8k_quant as PK
     from repro_torch.launch.serve import resolve_policy
+    from repro_torch.models import mamba2 as M2
     from repro_torch.models import moe as PM
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import (Engine, EngineSaturated,
@@ -2079,6 +2356,12 @@ def main() -> None:
         torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
         Engine, ServeConfig, PB, PA, PM, Q, dev)
 
+    # slice 8: the recurrent families at full width, the checkpoint
+    # prefix cache
+    launches8, timing8, slice8 = phase_slice8(
+        torch, np, get_arch, T, M2, quantize_params, variant_counts,
+        get_policy, Engine, ServeConfig, PB, PA, Q, dev)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2093,7 +2376,8 @@ def main() -> None:
                    **{f"{a}_serve": launches4[a][v] for a in launches4},
                    **{p: launches5[p][v] for p in launches5},
                    **{p: launches6[p][v] for p in launches6},
-                   **{p: launches7[p][v] for p in launches7}}
+                   **{p: launches7[p][v] for p in launches7},
+                   **{p: launches8[p][v] for p in launches8}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -2112,7 +2396,7 @@ def main() -> None:
             kernels[-1]["extended_mix"] = timing2[v]
         if v in timing5:
             kernels[-1][f"{TIMED5}_decode_shapes"] = timing5[v]
-        for arch, t7 in timing7.items():
+        for arch, t7 in {**timing7, **timing8}.items():
             if v in t7:
                 kernels[-1][f"{arch}_decode_shapes"] = t7[v]
         checked = {f"{a} {K}x{N}": {"weights": n, "max_abs_err": e}
@@ -2167,6 +2451,7 @@ def main() -> None:
     summary6 = {k: slice6[k] for k in ("kv8", "spec", "prefix")}
     print(f"[slice6] summary: {json.dumps(summary6)}", flush=True)
     print(f"[slice7] summary: {json.dumps(slice7)}", flush=True)
+    print(f"[slice8] summary: {json.dumps(slice8)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

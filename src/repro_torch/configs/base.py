@@ -7,9 +7,10 @@ config and a ``REDUCED`` same-family config for CPU tests. The port has
 the dense llama family whole (``llama3.2-1b`` with its tied LM head,
 ``qwen3-1.7b`` with qk-norm, ``phi3-mini-3.8b``, ``h2o-danube-1.8b``
 with its sliding window, and the paper's ``tinyllama-1.1b`` and
-``mobilellama-1.4b``), the gpt2 family (``gpt2-paper``) and the MoE
-family (``olmoe-1b-7b``, ``granite-moe-3b-a800m``); the other
-architectures join with the slices that port their families.
+``mobilellama-1.4b``), the gpt2 family (``gpt2-paper``), the MoE
+family (``olmoe-1b-7b``, ``granite-moe-3b-a800m``) and the recurrent
+families (``mamba2-2.7b``, ssm; ``zamba2-1.2b``, hybrid); vlm and audio
+join with the slice that ports them.
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 ARCH_IDS = (
     "llama3.2-1b", "qwen3-1.7b", "phi3-mini-3.8b", "h2o-danube-1.8b",
-    "granite-moe-3b-a800m", "olmoe-1b-7b",
+    "granite-moe-3b-a800m", "olmoe-1b-7b", "zamba2-1.2b", "mamba2-2.7b",
     # the paper's own evaluation models (Table III/IV)
     "gpt2-paper", "tinyllama-1.1b", "mobilellama-1.4b",
 )

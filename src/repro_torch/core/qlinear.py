@@ -9,6 +9,10 @@ gives (reduced tinyllama ``wq``: ``QTensor(q3_k, (256, 256))`` with
 packs along E*K, as the reference's: one QTensor of logical shape
 ``(E*K, N)`` whose payloads keep the leading ``L`` axis, so the expert
 products dequantize each layer's stack at once (``models/moe.py``).
+Either stack packs one layer at a time, so the packer's temporaries are
+one layer's (mamba2-2.7b's ``in_proj`` stack is 6.9 GB in f32); the
+packers work per (super-block, column), so the bytes are the whole
+stack's.
 """
 from __future__ import annotations
 
@@ -83,24 +87,28 @@ def quantize_params(params: Dict[str, Any], policy: QuantPolicy,
             if keff % a.numel() == 0:
                 a = a.repeat(keff // a.numel()).to(node.device)
                 qfn = functools.partial(Q.quantize_q3_k_o, act_absmax=a)
-        if expert:
-            return _pack_expert_stack(qfn, node)
+        if node.dim() >= 3:
+            return _pack_stack(qfn, node, expert)
         return qfn(node)
 
     return walk(params), report
 
 
-def _pack_expert_stack(qfn, w: torch.Tensor) -> Q.QTensor:
-    """(..., E, K, N) -> one QTensor of logical shape (E*K, N), its
-    payloads keeping the leading axes. Packed one leading index (layer)
-    at a time, so the temporaries are one layer's: the packers work per
-    (super-block, column), and the bytes equal packing the whole stack."""
-    *lead, E, K, N = w.shape
-    flat = w.reshape(-1, E * K, N)
+def _pack_stack(qfn, w: torch.Tensor, expert: bool) -> Q.QTensor:
+    """(..., K, N), or an expert stack (..., E, K, N), -> one QTensor of
+    logical shape (K, N), (E*K, N) for the experts, its payloads keeping
+    the leading axes. Packed one leading index (layer) at a time, so the
+    temporaries are one layer's: the packers work per (super-block,
+    column), and the bytes equal packing the whole stack."""
+    *lead, K, N = w.shape
+    if expert:
+        *lead, E = lead
+        K *= E
+    flat = w.reshape(-1, K, N)
     layers = [qfn(flat[i]) for i in range(flat.shape[0])]
     data = {k: torch.stack([t.data[k] for t in layers]).reshape(
         *lead, *layers[0].data[k].shape) for k in layers[0].data}
-    return Q.QTensor(layers[0].variant, (E * K, N), data)
+    return Q.QTensor(layers[0].variant, (K, N), data)
 
 
 def quantized_param_bytes(qparams) -> Dict[str, int]:

@@ -18,6 +18,10 @@ queue of requests through the continuous-batching engine.
       --policy paper_llama_mix --tokens 32 --drafter ngram --draft-k 4 \
       --prefix-cache --shared-prefix 64 --max-queue 16 --preempt
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --prompt-len 384 --prefill-chunk 128 --cache-len 1024 --tokens 32 \
+      --prefix-cache --shared-prefix 384 --prefix-bytes 1073741824
+
 ``--policy auto`` loads the searched policy file ``--policy-json`` if it
 exists (recalibrating first when a rule asks for q3_k_o, whose outlier
 rows follow the activation stats) and otherwise runs the policy search
@@ -26,9 +30,12 @@ writes the file and packs with the stats the search used.
 
 Every dense config of the port serves (``--arch`` llama3.2-1b,
 qwen3-1.7b, phi3-mini-3.8b, h2o-danube-1.8b, tinyllama-1.1b,
-mobilellama-1.4b), gpt2-paper and the MoE configs (olmoe-1b-7b,
-granite-moe-3b-a800m) under any hand-written policy; ``--policy auto`` on
-a MoE arch raises (its search is ROADMAP queue 1 item 3).
+mobilellama-1.4b), gpt2-paper, the MoE configs (olmoe-1b-7b,
+granite-moe-3b-a800m) and the recurrent ones (mamba2-2.7b, zamba2-1.2b)
+under any hand-written policy; ``--policy auto`` on a MoE, ssm or hybrid
+arch raises (its search is ROADMAP queue 1 item 3). For ssm and hybrid
+the chunk is clamped down to a divisor of ``--cache-len`` and
+``--prefix-page`` is ignored: a checkpoint page is one prefill chunk.
 ``--temperature T`` samples (0, the default, is greedy), ``--eos-id``
 ends a request at that token,
 ``--stream`` prints each token as it is emitted and ``--no-quant`` serves
@@ -77,10 +84,10 @@ def resolve_policy(cfg, params, *, policy: str, arch: str,
     that rule packs without them."""
     if policy != "auto":
         return get_policy(policy), None, None
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"--policy auto on the MoE arch {arch!r} is not ported yet "
-            "(ROADMAP queue 1 item 3); pass a named policy")
+            f"--policy auto on the {cfg.family} arch {arch!r} is not ported "
+            "yet (ROADMAP queue 1 item 3); pass a named policy")
     from repro_torch.launch.policy_search import (save_searched_policy,
                                                   search_policy)
     path = policy_json or f"results/auto_{arch}.json"
@@ -165,7 +172,9 @@ def main(argv=None):
                          "the suffix (greedy output stays the same)")
     ap.add_argument("--prefix-page", type=int, default=16,
                     help="positions per KV page (clamped to a divisor of "
-                         "the ring length)")
+                         "the ring length; the recurrent families, ssm "
+                         "and hybrid, pin the page to --prefill-chunk "
+                         "instead and ignore this flag)")
     ap.add_argument("--prefix-bytes", type=int, default=64 << 20,
                     help="device byte budget for the page pool (LRU "
                          "eviction of unreferenced pages beyond it)")

@@ -10,8 +10,7 @@ checkpoint copies. Every method delegates to ``models.transformer``.
 
 The table is the reference's, all seven rows, whether or not the port
 serves the family yet (``transformer._check_family`` says which it does:
-vlm, audio, ssm and hybrid are ROADMAP queue 1 item 5). Capability
-semantics:
+vlm and audio are ROADMAP queue 1 item 5). Capability semantics:
 
 * ``kv_ring``: the decode cache is a position-addressed KV ring; pages,
   speculation rollback and attention-head TP key off it.
@@ -135,9 +134,7 @@ class DecodeState:
 
     Stateless: the cache tensors live with the engine. Methods that make
     sense for one side of the kv_ring/recurrent split assert on the
-    capability row, not on ``cfg.family`` strings. The checkpoint methods
-    raise NotImplementedError past their assert: no recurrent family is
-    ported yet (ROADMAP queue 1 item 5)."""
+    capability row, not on ``cfg.family`` strings."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -179,12 +176,8 @@ class DecodeState:
 
     def scatter_checkpoints(self, cache, pool, idx, rows) -> Dict[str, Any]:
         assert self.caps.prefix_mode == "checkpoints", self.caps.family
-        raise NotImplementedError(
-            "checkpoint prefix caching needs a recurrent family, not "
-            "ported yet (ROADMAP queue 1 item 5)")
+        return T.cache_scatter_checkpoints(cache, pool, idx, rows)
 
     def insert_checkpoints(self, pool, cache, rows, idx) -> Dict[str, Any]:
         assert self.caps.prefix_mode == "checkpoints", self.caps.family
-        raise NotImplementedError(
-            "checkpoint prefix caching needs a recurrent family, not "
-            "ported yet (ROADMAP queue 1 item 5)")
+        return T.cache_insert_checkpoints(pool, cache, rows, idx)

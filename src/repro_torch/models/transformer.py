@@ -1,11 +1,14 @@
-"""Transformer: init, chunked prefill and decode against a KV ring.
+"""Model assembly: init, chunked prefill and decode against a cache.
 
 Counterpart of ``repro.models.transformer`` for the dense llama family
 (RMSNorm, split-half RoPE, GQA, SwiGLU; optionally qk-norm, a sliding
 window and an LM head tied to the embedding), the gpt2 family
-(LayerNorm, learned positions, fused qkv with biases, GELU MLP) and the
+(LayerNorm, learned positions, fused qkv with biases, GELU MLP), the
 MoE family (the dense block with a top-k expert layer, ``models/moe.py``,
-in place of the MLP).
+in place of the MLP), and the recurrent families: ssm (Mamba2 blocks,
+``models/mamba2.py``) and hybrid (Zamba2: a Mamba2 backbone with one
+shared attention block over concat(hidden, initial embedding) at width
+2d after every ``hybrid_attn_every`` layers).
 Parameters are a plain dict tree with the reference's paths and stacked
 layer axis; a weight may be a packed ``QTensor`` whose payloads carry
 that axis too.
@@ -17,16 +20,21 @@ and the quality metrics run. Caches: ``k``/``v`` of shape
 ``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)`` int32 with -1 for an empty
 slot, as in the reference; under ``cfg.kv_cache_quant`` ``k``/``v`` hold
 int8 codes and ``k_scale``/``v_scale`` ``(L, B, T, KH)`` their f32
-per-row scales. Where the reference returns an updated copy,
+per-row scales. A recurrent cache holds ``conv`` ``(L, B, W-1, C)`` in
+the cache dtype and ``state`` ``(L, B, H, P, N)`` in f32; hybrid adds
+one bf16 ring a shared-block application, ``k``/``v`` ``(napp, B, T,
+KH, 2d/H)``, and ``pos``. Where the reference returns an updated copy,
 ``decode_step``, ``prefill_chunk``, ``verify_chunk``, ``verify_scan``,
-``cache_set_slots``, ``cache_scatter_pages`` and ``cache_ring_rewind``
-update the cache tensors in place (saving a copy of the whole cache per
-step) and return the same dict.
+``cache_set_slots``, ``cache_scatter_pages``, ``cache_ring_rewind``,
+``cache_scatter_checkpoints`` and ``cache_insert_checkpoints`` update
+the tensors in place (saving a copy of the whole cache per step) and
+return the same dict.
 
 The speculative-decoding pieces (``verify_chunk``, ``verify_scan``,
 ``cache_ring_snapshot``/``cache_ring_rewind``) and the prefix cache's page
-copies (``cache_page_pool``, ``cache_gather_pages``,
-``cache_scatter_pages``) are the reference's.
+and checkpoint copies (``cache_page_pool``, ``cache_gather_pages``,
+``cache_scatter_pages``, ``cache_scatter_checkpoints``,
+``cache_insert_checkpoints``) are the reference's.
 """
 from __future__ import annotations
 
@@ -42,14 +50,16 @@ from repro_torch.core.quantize import QTensor, _div, _safe_inv
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 
-_PORTED_FAMILIES = ("dense", "gpt2", "moe")
+_RECURRENT = ("ssm", "hybrid")
+_PORTED_FAMILIES = ("dense", "gpt2", "moe") + _RECURRENT
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port has the dense llama family, gpt2 and MoE; vlm, audio,
-    ssm and hybrid are ROADMAP queue 1 item 5."""
+    """The port has the dense llama family, gpt2, MoE, ssm and hybrid;
+    vlm and audio are ROADMAP queue 1 item 5."""
     unported = [f for f, on in (
         (f"family {cfg.family!r} (ROADMAP queue 1 item 5)",
          cfg.family not in _PORTED_FAMILIES),
@@ -84,9 +94,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    def ones(shape, dt=dtype):
+        return torch.ones(shape, dtype=dt, device=dev)
+
     def norm_p(width, stacked=True):
         shape = (Lc, width) if stacked else (width,)
-        out = {"w": torch.ones(shape, dtype=dtype, device=dev)}
+        out = {"w": ones(shape)}
         if cfg.norm_type == "layernorm":
             out["b"] = zeros(shape)
         return out
@@ -94,36 +107,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     p: Dict[str, Any] = {"wte": dense_init((V, d), d)}
     if cfg.pos_emb == "learned":
         p["wpe"] = dense_init((cfg.max_position, d), 1.0) * 0.02
-    if cfg.fused_qkv:
-        attn = {"c_attn": dense_init((Lc, d, 3 * d), d),
-                "b_attn": zeros((Lc, 3 * d)),
-                "c_proj": dense_init((Lc, d, d), d),
-                "b_proj": zeros((Lc, d))}
+    if cfg.family in _RECURRENT:
+        dd = M2.ssm_dims(cfg)
+        Hs, f32 = dd["n_heads"], torch.float32
+        p["layers"] = {"ln1": norm_p(d), "ssm": {
+            "in_proj": dense_init((Lc, d, dd["d_proj"]), d),
+            "out_proj": dense_init((Lc, dd["d_inner"], d), dd["d_inner"]),
+            "conv_w": dense_init((Lc, cfg.ssm_conv_width, dd["conv_ch"]),
+                                 4.0),
+            "conv_b": zeros((Lc, dd["conv_ch"])),
+            "A_log": torch.zeros((Lc, Hs), dtype=f32, device=dev),
+            "D": ones((Lc, Hs), f32),
+            "dt_bias": torch.zeros((Lc, Hs), dtype=f32, device=dev),
+            "norm_w": ones((Lc, dd["d_inner"]))}}
+        if cfg.family == "hybrid":
+            d2, fh = 2 * d, cfg.hybrid_attn_d_ff or cfg.d_ff
+            Dh2 = d2 // H
+            p["shared"] = {
+                "ln1": {"w": ones((d2,))}, "ln2": {"w": ones((d2,))},
+                "attn": {"wq": dense_init((d2, H * Dh2), d2),
+                         "wk": dense_init((d2, KH * Dh2), d2),
+                         "wv": dense_init((d2, KH * Dh2), d2),
+                         "wo": dense_init((H * Dh2, d2), H * Dh2)},
+                "mlp": {"w_gate": dense_init((d2, fh), d2),
+                        "w_up": dense_init((d2, fh), d2),
+                        "w_down": dense_init((fh, d2), fh)},
+                "proj_out": dense_init((d2, d), d2)}
     else:
-        attn = {"wq": dense_init((Lc, d, H * Dh), d),
-                "wk": dense_init((Lc, d, KH * Dh), d),
-                "wv": dense_init((Lc, d, KH * Dh), d),
-                "wo": dense_init((Lc, H * Dh, d), H * Dh)}
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
-            attn["k_norm"] = torch.ones((Lc, Dh), dtype=dtype, device=dev)
-    blk = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn}
-    if cfg.family == "moe":
-        E, fe = cfg.n_experts, cfg.moe_d_ff
-        blk["moe"] = {"router": dense_init((Lc, d, E), d),
-                      "w_gate": dense_init((Lc, E, d, fe), d),
-                      "w_up": dense_init((Lc, E, d, fe), d),
-                      "w_down": dense_init((Lc, E, fe, d), fe)}
-    elif cfg.act == "gelu":
-        blk["mlp"] = {"c_fc": dense_init((Lc, d, f), d),
-                      "b_fc": zeros((Lc, f)),
-                      "c_proj": dense_init((Lc, f, d), f),
-                      "b_proj": zeros((Lc, d))}
-    else:
-        blk["mlp"] = {"w_gate": dense_init((Lc, d, f), d),
-                      "w_up": dense_init((Lc, d, f), d),
-                      "w_down": dense_init((Lc, f, d), f)}
-    p["layers"] = blk
+        if cfg.fused_qkv:
+            attn = {"c_attn": dense_init((Lc, d, 3 * d), d),
+                    "b_attn": zeros((Lc, 3 * d)),
+                    "c_proj": dense_init((Lc, d, d), d),
+                    "b_proj": zeros((Lc, d))}
+        else:
+            attn = {"wq": dense_init((Lc, d, H * Dh), d),
+                    "wk": dense_init((Lc, d, KH * Dh), d),
+                    "wv": dense_init((Lc, d, KH * Dh), d),
+                    "wo": dense_init((Lc, H * Dh, d), H * Dh)}
+            if cfg.qk_norm:
+                attn["q_norm"] = ones((Lc, Dh))
+                attn["k_norm"] = ones((Lc, Dh))
+        blk = {"ln1": norm_p(d), "ln2": norm_p(d), "attn": attn}
+        if cfg.family == "moe":
+            E, fe = cfg.n_experts, cfg.moe_d_ff
+            blk["moe"] = {"router": dense_init((Lc, d, E), d),
+                          "w_gate": dense_init((Lc, E, d, fe), d),
+                          "w_up": dense_init((Lc, E, d, fe), d),
+                          "w_down": dense_init((Lc, E, fe, d), fe)}
+        elif cfg.act == "gelu":
+            blk["mlp"] = {"c_fc": dense_init((Lc, d, f), d),
+                          "b_fc": zeros((Lc, f)),
+                          "c_proj": dense_init((Lc, f, d), f),
+                          "b_proj": zeros((Lc, d))}
+        else:
+            blk["mlp"] = {"w_gate": dense_init((Lc, d, f), d),
+                          "w_up": dense_init((Lc, d, f), d),
+                          "w_down": dense_init((Lc, f, d), f)}
+        p["layers"] = blk
     p["ln_f"] = norm_p(d, stacked=False)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((d, V), d)
@@ -233,6 +273,10 @@ def _apply_rope(q, k, cos_sin):
 # page carries these (``pos`` is stamped from the page's start position
 # at scatter time, never stored)
 _PAGE_KEYS = ("k", "v", "k_scale", "v_scale")
+# recurrent checkpoint payload: one pool row holds the whole conv/SSM
+# state after the page's last token (not per-position data), so a warm
+# admission restores it and recomputes only the suffix
+_STATE_KEYS = ("conv", "state")
 
 
 def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -249,6 +293,8 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
     _check_family(cfg)
     dev = resolve_device(device)
     T = attn_cache_len(cfg, seq_len)
+    if cfg.family in _RECURRENT:
+        return _recurrent_cache(cfg, B, T, dtype, dev)
     shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.d_head)
     kdt = torch.int8 if cfg.kv_cache_quant else dtype
     cache = {"k": torch.zeros(shape, dtype=kdt, device=dev),
@@ -260,6 +306,31 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                                        device=dev)
     cache["pos"] = torch.full((B, T), -1, dtype=torch.int32, device=dev)
     return cache
+
+
+def _recurrent_cache(cfg: ModelConfig, B: int, T: int, dtype, dev):
+    """conv (L, B, W-1, C) in ``dtype`` and state (L, B, H, P, N) in f32;
+    hybrid adds a bf16 ring of T positions for each application of the
+    shared block (no int8 ring: the reference's hybrid cache has none)."""
+    dd = M2.ssm_dims(cfg)
+    Lc = cfg.n_layers
+    cache = {
+        "conv": torch.zeros((Lc, B, cfg.ssm_conv_width - 1, dd["conv_ch"]),
+                            dtype=dtype, device=dev),
+        "state": torch.zeros((Lc, B, dd["n_heads"], dd["head_dim"],
+                              dd["state"]), dtype=torch.float32, device=dev)}
+    if cfg.family == "hybrid":
+        shape = (len(_shared_apps(cfg)), B, T, cfg.n_kv_heads,
+                 2 * cfg.d_model // cfg.n_heads)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["pos"] = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    return cache
+
+
+def _cache_batch(cache) -> int:
+    """Batch slots of a decode cache (a ring-less ssm cache has no pos)."""
+    return cache["pos"].shape[0] if "pos" in cache else cache["conv"].shape[1]
 
 
 def _quantize_kv(x):
@@ -318,14 +389,14 @@ def cache_set_slots(cache: Dict[str, Any], group_cache: Dict[str, Any],
     """Scatter a G-row group cache into batch slots ``indices`` (G,) of a
     multi-slot decode cache, in place. An index >= B drops that row (the
     scheduler points padding rows out of range)."""
-    B = cache["pos"].shape[0]
+    B = _cache_batch(cache)
     idx = torch.as_tensor(indices, dtype=torch.long).cpu()
     keep = idx < B
     rows = keep.nonzero()[:, 0]
     dst = idx[keep]
     if dst.numel() == 0:
         return cache
-    dev = cache["pos"].device
+    dev = next(iter(cache.values())).device
     rows, dst = rows.to(dev), dst.to(dev)
     for k, v in cache.items():
         upd = group_cache[k].to(v.dtype)
@@ -368,7 +439,14 @@ def cache_ring_rewind(cache: Dict[str, Any], snapshot: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def cache_page_keys(cfg: ModelConfig) -> Tuple[str, ...]:
-    """Pool entries a prefix-cache page carries: the ring payloads."""
+    """Pool entries a prefix-cache page carries: the ring payloads of the
+    family's cache, and for the recurrent families the whole-state
+    checkpoints (ssm has no ring; hybrid pages its shared-block ring and
+    its conv/SSM checkpoints)."""
+    if cfg.family == "ssm":
+        return _STATE_KEYS
+    if cfg.family == "hybrid":
+        return _PAGE_KEYS[:2] + _STATE_KEYS
     return _PAGE_KEYS if cfg.kv_cache_quant else _PAGE_KEYS[:2]
 
 
@@ -377,7 +455,10 @@ def cache_page_pool(cfg: ModelConfig, n_pages: int, page: int,
     """Page pool for the prefix cache: every ring payload with the batch
     axis read as a page index and the ring axis ``page`` rows long, e.g.
     ``k`` (L, n_pages, page, KH, Dh). The live ring's dtypes (int8 + f32
-    scales under kv_cache_quant), so page copies are bit for bit."""
+    scales under kv_cache_quant), so page copies are bit for bit.
+    Recurrent families add per-page checkpoints ``conv`` (L, n_pages,
+    W-1, C) and ``state`` (L, n_pages, H, P, N): the state after the
+    page's last token, indexed by page like a batch row."""
     tmpl = init_cache(cfg, n_pages, page, dtype=dtype, device=device)
     return {k: tmpl[k] for k in cache_page_keys(cfg)}
 
@@ -409,6 +490,46 @@ def cache_scatter_pages(cache: Dict[str, Any], pages: Dict[str, Any], rows,
         kops.page_scatter(cache[k], pg, rows, cols, ring_axis=_ring_axis(k))
     kops.page_scatter(cache["pos"], positions, rows, cols, ring_axis=1)
     return cache
+
+
+def cache_scatter_checkpoints(cache: Dict[str, Any], pool: Dict[str, Any],
+                              idx, rows) -> Dict[str, Any]:
+    """Restore recurrent checkpoints, in place: pool page rows ``idx``
+    (n,) into batch rows ``rows`` (n,) of the cache's conv/state entries
+    (whole-state row copies: checkpoints are not positional pages), both
+    host arrays. A row >= B drops that element, filtered on the host
+    (batch padding; its ``idx`` may be out of range). Destinations must
+    be distinct."""
+    idx, rows = kops._host_index(idx, "idx"), kops._host_index(rows, "rows")
+    keep = rows < _cache_batch(cache)
+    if not keep.any():
+        return cache
+    dev = cache["conv"].device
+    i = torch.as_tensor(idx[keep], device=dev)
+    r = torch.as_tensor(rows[keep], device=dev)
+    for k in _STATE_KEYS:
+        cache[k][:, r] = pool[k][:, i].to(cache[k].dtype)
+    return cache
+
+
+def cache_insert_checkpoints(pool: Dict[str, Any], cache: Dict[str, Any],
+                             rows, idx) -> Dict[str, Any]:
+    """Record recurrent checkpoints, in place: the cache's batch rows
+    ``rows`` (n,) of conv/state into pool page rows ``idx`` (n,). The
+    source is the inter-chunk state the scheduler's chunk loop holds, so
+    a checkpoint is bit for bit the state a cold run carries at that page
+    boundary. Both are host arrays; an ``idx`` >= n_pages drops (padding),
+    filtered on the host."""
+    idx, rows = kops._host_index(idx, "idx"), kops._host_index(rows, "rows")
+    keep = idx < pool["conv"].shape[1]
+    if not keep.any():
+        return pool
+    dev = pool["conv"].device
+    i = torch.as_tensor(idx[keep], device=dev)
+    r = torch.as_tensor(rows[keep], device=dev)
+    for k in _STATE_KEYS:
+        pool[k][:, i] = cache[k][:, r].to(pool[k].dtype)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +570,10 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     impl = cfg.kernel_impl
     B = tokens.shape[0]
     h = _embed(params, cfg, tokens, position)[:, None, :]   # (B,1,d)
+    if cfg.family in _RECURRENT:
+        h = _recurrent_decode(params, cfg, cache, h, position, live, impl)
+        h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
+        return _logits(params, cfg, h[:, 0], impl=impl), cache
     cos_sin = _rope(cfg, position[:, None])
 
     T = cache["k"].shape[2]
@@ -497,12 +622,19 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     below ``start`` into the ring first; the chunk then attends them
     there, as a later chunk of a cold prefill attends earlier chunks.
 
+    The recurrent families run the same masked-chunk contract through
+    ``_recurrent_chunk``: invalid columns are identity on the conv/SSM
+    state, so trailing pads never reach it. A warm admission restores a
+    checkpoint and starts the chunk grid at its horizon.
+
     Returns (final-norm hidden (B, C, d), cache updated in place)."""
     _check_family(cfg)
     B, C = tokens.shape
     positions = (start + torch.arange(C, dtype=torch.long,
                                       device=tokens.device))[None].expand(B, C)
     valid = positions < lengths[:, None]
+    if cfg.family in _RECURRENT:
+        return _recurrent_chunk(params, cfg, cache, tokens, positions, valid)
     attn_impl = "fused" if cfg.attn_impl == "fused" else "naive"
     return _masked_chunk(params, cfg, cache, tokens, positions, valid,
                          functools.partial(L.prefill_attention,
@@ -542,6 +674,11 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
     """Shared body of prefill_chunk / verify_chunk: one (B, C) masked
     chunk forward against the ring, writing valid columns at
     ``positions % T``; ``attn_fn`` is the chunk attention."""
+    if cfg.family in _RECURRENT:
+        raise NotImplementedError(
+            f"the ring-masked chunk body is KV-cache-only; family "
+            f"{cfg.family!r} prefills through _recurrent_chunk and cannot "
+            f"verify drafts (a dense recurrent state has no ring rewind)")
     impl = cfg.kernel_impl
     B, C = tokens.shape
     T = cache["k"].shape[2]
@@ -631,9 +768,185 @@ def forward_seq(params, cfg: ModelConfig, *, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     h = _embed(params, cfg, tokens, positions)
-    cos_sin = _rope(cfg, positions)
-    for li in range(cfg.n_layers):
-        h = _attn_layer_seq(h, _layer(params["layers"], li), cfg, cos_sin,
-                            impl)
+    if cfg.family in _RECURRENT:
+        emb0, apps = h, _shared_apps(cfg)
+        for li in range(cfg.n_layers):
+            h = _ssm_layer(h, _layer(params["layers"], li), cfg, impl)[0]
+            if li in apps:
+                h = _shared_block_seq(h, emb0, params["shared"], cfg,
+                                      positions, impl)
+    else:
+        cos_sin = _rope(cfg, positions)
+        for li in range(cfg.n_layers):
+            h = _attn_layer_seq(h, _layer(params["layers"], li), cfg,
+                                cos_sin, impl)
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
     return _logits(params, cfg, h, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: Mamba2 layers and zamba2's shared block
+# ---------------------------------------------------------------------------
+
+def _hybrid_groups(cfg: ModelConfig):
+    """Layer-group sizes between shared-block applications."""
+    k, n = cfg.hybrid_attn_every, cfg.n_layers
+    groups = []
+    while n > 0:
+        groups.append(min(k, n))
+        n -= k
+    return groups
+
+
+def _shared_apps(cfg: ModelConfig) -> Dict[int, int]:
+    """Layer index -> shared-block application that follows it: one after
+    each full group (a short last group has none); empty for ssm."""
+    if cfg.family != "hybrid":
+        return {}
+    apps, i0 = {}, 0
+    for g in _hybrid_groups(cfg):
+        i0 += g
+        if g == cfg.hybrid_attn_every:
+            apps[i0 - 1] = len(apps)
+    return apps
+
+
+def _ssm_layer(h, lp, cfg: ModelConfig, impl, **kw):
+    """h + mamba2_forward(ln1(h)); returns (h, (conv, state))."""
+    a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
+    out, states = M2.mamba2_forward(a_in, lp["ssm"], cfg, impl=impl, **kw)
+    return h + out, states
+
+
+def _shared_qkv(h, emb0, sp, cfg: ModelConfig, positions, impl):
+    """The shared block's input u = concat(h, emb0) (B, S, 2d) and its
+    rotated q, k and v at head dim 2d / H."""
+    B, S, d = h.shape
+    u = torch.cat([h, emb0], dim=-1)
+    a_in = L.rmsnorm(u, sp["ln1"]["w"], cfg.norm_eps)
+    Dh2 = 2 * d // cfg.n_heads
+    q = L.dense(a_in, sp["attn"]["wq"], impl=impl)
+    k = L.dense(a_in, sp["attn"]["wk"], impl=impl)
+    v = L.dense(a_in, sp["attn"]["wv"], impl=impl)
+    q = q.reshape(B, S, cfg.n_heads, Dh2)
+    k = k.reshape(B, S, cfg.n_kv_heads, Dh2)
+    v = v.reshape(B, S, cfg.n_kv_heads, Dh2)
+    cos, sin = L.rope_cos_sin(positions, Dh2, cfg.rope_theta)
+    return u, L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def _shared_out(h, u, o, sp, cfg: ModelConfig, impl):
+    """o-projection, SwiGLU and proj_out of the shared block, added to h."""
+    B, S = o.shape[:2]
+    u = u + L.dense(o.reshape(B, S, -1), sp["attn"]["wo"], impl=impl)
+    m_in = L.rmsnorm(u, sp["ln2"]["w"], cfg.norm_eps)
+    u = u + L.swiglu_mlp(m_in, sp["mlp"], impl=impl)
+    return h + L.dense(u, sp["proj_out"], impl=impl)
+
+
+def _shared_block_seq(h, emb0, sp, cfg: ModelConfig, positions, impl):
+    """Zamba2's shared attention block over (h ++ initial embedding),
+    causal over the whole sequence."""
+    u, q, k, v = _shared_qkv(h, emb0, sp, cfg, positions, impl)
+    o = _seq_attention(q, k, v, cfg, h.shape[1])
+    return _shared_out(h, u, o, sp, cfg, impl)
+
+
+def _store_state(cache, li: int, conv, state, live) -> None:
+    """In place: layer ``li``'s conv/state rows, cast to the cache's
+    dtypes, where ``live`` (B,) is True (every row when None); dead rows
+    keep what they held."""
+    if live is not None:
+        conv = torch.where(live[:, None, None], conv, cache["conv"][li])
+        state = torch.where(live[:, None, None, None], state,
+                            cache["state"][li])
+    cache["conv"][li] = conv
+    cache["state"][li] = state
+
+
+def _shared_ring(cache, app: int) -> Dict[str, torch.Tensor]:
+    """Application ``app``'s ring payloads (views, written in place)."""
+    return {"k": cache["k"][app], "v": cache["v"][app]}
+
+
+def _recurrent_decode(params, cfg: ModelConfig, cache, h, position, live,
+                      impl):
+    """decode_step's ssm and hybrid body: one token through every Mamba2
+    layer's recurrence (and hybrid's shared block against its rings),
+    the cache updated in place. h: (B, 1, d)."""
+    apps = _shared_apps(cfg)
+    if apps:
+        B = h.shape[0]
+        T = cache["k"].shape[2]
+        slot = position % T
+        bidx = torch.arange(B, device=h.device)
+        pos_new = position.to(torch.int32)
+        if live is not None:
+            pos_new = torch.where(live, pos_new, cache["pos"][bidx, slot])
+        cache["pos"][bidx, slot] = pos_new
+        emb0 = h
+    for li in range(cfg.n_layers):
+        lp = _layer(params["layers"], li)
+        a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
+        out, (cs, ss) = M2.mamba2_decode(a_in[:, 0], lp["ssm"], cfg,
+                                         cache["conv"][li],
+                                         cache["state"][li], impl=impl)
+        _store_state(cache, li, cs, ss, live)
+        h = h + out[:, None]
+        if li in apps:
+            sp = params["shared"]
+            ring = _shared_ring(cache, apps[li])
+            u, q, k, v = _shared_qkv(h, emb0, sp, cfg, position[:, None],
+                                     impl)
+            store, _ = _ring_entries(ring, k[:, 0], v[:, 0])
+            _ring_store(ring, store, bidx, slot, live)
+            o = L.decode_attention(q, ring["k"], ring["v"], cache["pos"],
+                                   position, window=cfg.sliding_window)
+            h = _shared_out(h, u, o, sp, cfg, impl)
+    return h
+
+
+def _recurrent_chunk(params, cfg: ModelConfig, cache, tokens, positions,
+                     valid):
+    """Masked (B, C) prefill chunk for the recurrent families: the
+    counterpart of ``_masked_chunk``. ``valid`` is a contiguous prefix of
+    each row. Invalid columns run the math but are identity on the
+    recurrent state (``mamba2_forward(valid=...)``), so a row whose prompt
+    ended mid-chunk, or a group-padding dummy of length 0, carries the
+    state of an exact-length run. Hybrid's shared block takes the KV
+    families' chunk semantics against its rings: queries attend the
+    pre-chunk ring plus the chunk's own ring-dtype keys, then valid
+    columns land at ``position % T``. Returns (final-norm hidden, cache
+    updated in place)."""
+    impl = cfg.kernel_impl
+    B, C = tokens.shape
+    h = _embed(params, cfg, tokens, positions)
+    apps = _shared_apps(cfg)
+    if apps:
+        T = cache["k"].shape[2]
+        if C > T:
+            raise ValueError(f"chunk of {C} columns exceeds the ring ({T})")
+        bidx = torch.arange(B, device=tokens.device)[:, None]
+        slot = positions % T
+        old_pos = cache["pos"].clone()      # every application attends
+        emb0 = h                            # the pre-chunk ring
+    for li in range(cfg.n_layers):
+        h, (cs, ss) = _ssm_layer(h, _layer(params["layers"], li), cfg, impl,
+                                 conv_state=cache["conv"][li],
+                                 ssm_state=cache["state"][li], valid=valid)
+        _store_state(cache, li, cs, ss, None)
+        if li in apps:
+            sp = params["shared"]
+            ring = _shared_ring(cache, apps[li])
+            u, q, k, v = _shared_qkv(h, emb0, sp, cfg, positions, impl)
+            store, (k_chunk, v_chunk) = _ring_entries(ring, k, v)
+            o = L.prefill_attention(q, ring["k"], ring["v"], old_pos,
+                                    k_chunk, v_chunk, positions, valid,
+                                    window=cfg.sliding_window)
+            _ring_store(ring, store, bidx, slot, valid)
+            h = _shared_out(h, u, o, sp, cfg, impl)
+    if apps:
+        cache["pos"][bidx, slot] = torch.where(
+            valid, positions.to(torch.int32), old_pos[bidx, slot])
+    h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
+    return h, cache

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro.serving.engine``: greedy or temperature sampling,
 speculative decoding, the prefix cache and SLO admission, for the
-KV-ring families the port has (dense, gpt2, MoE) on one device (``tp=1``;
-tensor parallelism is ROADMAP queue 1 item 7 and is rejected at
-construction). As in the reference, construction runs one validation
-pass over the family x feature matrix (``models/state.py``'s
-``validate_serve_features``) and every cache operation goes through the
-family's ``DecodeState`` adapter. Its scheduling is the reference's:
+families the port has (dense, gpt2, MoE, and the recurrent ssm and
+hybrid) on one device (``tp=1``; tensor parallelism is ROADMAP queue 1
+item 7 and is rejected at construction). As in the reference,
+construction runs one validation pass over the family x feature matrix
+(``models/state.py``'s ``validate_serve_features``) and every cache
+operation goes through the family's ``DecodeState`` adapter. Its
+scheduling is the reference's:
 
 * ``batched chunked prefill``: at each chunk boundary the scheduler drains
   up to ``prefill_batch`` queued requests into the free slots at once,
@@ -53,6 +54,18 @@ family's ``DecodeState`` adapter. Its scheduling is the reference's:
   smallest match and masks the cached columns past it, which moves the
   fused kernel's sums). Fresh prompt pages are copied into the pool,
   with LRU eviction under the byte budget.
+* ``recurrent families`` (ssm, hybrid): the same batched chunked prefill
+  on a fixed chunk grid. The chunk is clamped down to a divisor of the
+  ring and a group always prefills whole chunks, so every prompt, batched
+  or alone, warm or cold, sees the same absolute chunk boundaries, which
+  the SSD scan's numbers depend on. Their prefix cache stores whole-state
+  checkpoints: the page is pinned to the chunk, only full pages match,
+  the group reuses up to its smallest full-page match s0 (one cold row
+  makes the group cold), a warm row restores the conv/SSM state of the
+  page ending at s0 (hybrid also scatters its ring pages below s0), and
+  the chunk loop starts at s0. New pages take their checkpoints chunk by
+  chunk, copies of the inter-chunk state the loop holds. Speculation is
+  refused (no rewind un-writes a dense state).
 * ``SLO admission``: ``priority`` strata, then the earliest TTFT
   deadline, then submission order drain the queue (uniform priority and
   no deadlines is FIFO); ``max_queue`` bounds the queue
@@ -62,8 +75,9 @@ family's ``DecodeState`` adapter. Its scheduling is the reference's:
 
 Batched admission is token-identical to sequential admission because
 every matmul computes each output row on its own (see
-``kernels/bfp_matmul.py``), and the naive attention and the MoE layer
-run a batch row at a time. For the MoE family this holds where the
+``kernels/bfp_matmul.py``), and the naive attention, the MoE layer and
+the SSD scan's products (``models/mamba2.py``) run a batch row at a
+time. For the MoE family this holds where the
 groups pad to the same chunk length: the layer's capacity follows the
 chunk length, so prompts of different lengths grouped otherwise can
 drop other token choices, as in the reference. ``generate_reference``
@@ -224,7 +238,7 @@ class Engine:
                     f"ServeConfig.{field}={getattr(serve_cfg, field)!r} is "
                     f"not ported yet ({where}); this engine serves on one "
                     f"device without it (leave it at {off!r})")
-        validate_serve_features(
+        self._caps = validate_serve_features(
             cfg, tp=serve_cfg.tp, drafter=serve_cfg.drafter is not None,
             prefix_cache=serve_cfg.prefix_cache)
         T._check_family(cfg)
@@ -234,7 +248,15 @@ class Engine:
         self.scfg = serve_cfg
         self._B = serve_cfg.max_slots
         self._T = T.attn_cache_len(cfg, serve_cfg.cache_len)
-        self._chunk = max(1, min(serve_cfg.prefill_chunk, self._T))
+        # the recurrent families pin a fixed chunk grid, clamped down to a
+        # divisor of the ring: the SSD scan's numbers depend on where the
+        # chunk bounds fall, so batched and sequential, warm and cold
+        # admission must all see the same absolute bounds
+        chunk = max(1, min(serve_cfg.prefill_chunk, self._T))
+        if self._caps.recurrent:
+            while self._T % chunk:
+                chunk -= 1
+        self._chunk = chunk
         self._drafter = None
         if serve_cfg.drafter is not None:
             k = serve_cfg.draft_k
@@ -261,10 +283,15 @@ class Engine:
         if serve_cfg.prefix_cache:
             if serve_cfg.prefix_page < 1:
                 raise ValueError("prefix_page must be >= 1")
-            # pages tile the ring exactly, so a page never wraps inside
-            page = max(1, min(serve_cfg.prefix_page, self._T))
-            while self._T % page:
-                page -= 1
+            if self._caps.prefix_mode == "checkpoints":
+                # a checkpoint page is the chunk: every checkpoint is an
+                # inter-chunk state the chunk loop holds anyway
+                page = self._chunk
+            else:
+                # pages tile the ring exactly, so a page never wraps inside
+                page = max(1, min(serve_cfg.prefix_page, self._T))
+                while self._T % page:
+                    page -= 1
             self._page = page
             cap = max(2, int(serve_cfg.prefix_bytes)
                       // self._state.page_bytes(page))
@@ -578,7 +605,8 @@ class Engine:
             speculate = self._drafter is not None
         elif speculate and self._drafter is None:
             raise ValueError("speculate=True needs ServeConfig.drafter")
-        if not self.cfg.sliding_window and len(prompt) + budget > self._T:
+        if (self._caps.ring_bounded_context and not self.cfg.sliding_window
+                and len(prompt) + budget > self._T):
             # full-attention archs must not wrap the KV ring (that would
             # silently truncate context)
             raise ValueError(
@@ -680,10 +708,11 @@ class Engine:
         a multiple of it; the group pads to a power of two capped at
         ``prefill_batch``.
 
-        ``whole`` keeps whole chunks. The engine asks for it for a warm
-        group (``lens`` past a horizon s0 > 0, a multiple of the chunk)
-        of a family whose capacity follows the chunk length (MoE), as a
-        cold prefill of the same prompts has past its first chunk: a
+        ``whole`` keeps whole chunks. The engine asks for it for every
+        group of a recurrent family (its chunk grid is fixed), and for a
+        warm group (``lens`` past a horizon s0 > 0, a multiple of the
+        chunk) of a family whose capacity follows the chunk length (MoE),
+        as a cold prefill of the same prompts has past its first chunk: a
         shorter chunk could drop token choices the cold one keeps. Other
         families prefill a short suffix in a short chunk."""
         b = max(self.scfg.prefill_bucket, 1)
@@ -748,7 +777,8 @@ class Engine:
             cols[j] = np.where(ar < take, (p0 + ar) % self._T, self._T)
             pos[j] = p0 + ar
         idx_d = torch.as_tensor(idx, device=self.device)
-        pages = {k: v[:, idx_d] for k, v in self._pool.items()}
+        pages = {k: v[:, idx_d] for k, v in self._pool.items()
+                 if k in T._PAGE_KEYS}
         self._state.scatter_pages(gcache, pages, rows, cols, pos)
 
     def _insert_prefix_pages(self, gcache, reqs, lens) -> None:
@@ -768,6 +798,12 @@ class Engine:
         self.stats["prefix_evictions"] += self._prefix.evictions - ev0
         self.stats["prefix_insert_drops"] += (self._prefix.insert_drops
                                               - dr0)
+        self._copy_ring_pages(gcache, jobs)
+
+    def _copy_ring_pages(self, gcache, jobs) -> None:
+        """Copy the ring payload of pages just recorded in the radix tree,
+        jobs (group_row, pool_idx, start_pos), out of the prefilled group
+        cache into the pool."""
         if not jobs:
             return
         self._ensure_pool()
@@ -781,8 +817,84 @@ class Engine:
             cols[j] = p0 + ar           # full in-ring pages never wrap
         pages = self._state.gather_pages(gcache, rows, cols)
         idx_d = torch.as_tensor(idx, device=self.device)
-        for k, pool in self._pool.items():
-            pool[:, idx_d] = pages[k]
+        for k, pg in pages.items():
+            self._pool[k][:, idx_d] = pg
+
+    # -- prefix cache, recurrent families: checkpoint pages ------------------
+    def _match_checkpoints(self, reqs: List[Request]):
+        """Checkpoint matching: only full pages count (a checkpoint is the
+        state after a whole page), and the group shares one horizon s0,
+        the smallest full-page match: the chunk grid is group-wide, so a
+        single cold row makes the whole group cold. Returns (s0, per-row
+        full-page match lengths, hybrid ring-page scatter jobs (row,
+        pool_idx, start_pos, take) below s0, checkpoint restore jobs
+        (row, pool_idx) of each row's page ending at s0)."""
+        page = self._page
+        raw = [self._prefix.match(r.prompt) for r in reqs]
+        fulls = [m // page * page for m, _ in raw]
+        s0 = min(fulls)
+        if s0 == 0:
+            return 0, fulls, [], []
+        # of the recurrent families only hybrid has a ring
+        has_ring = self._caps.ring_bounded_context
+        pjobs, ckpt_jobs = [], []
+        for i, (_, pages) in enumerate(raw):
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += s0
+            for pidx, p0, take in pages:
+                if take != page or p0 + page > s0:
+                    continue            # a partial page, or past s0
+                if has_ring:
+                    pjobs.append((i, pidx, p0, take))
+                if p0 + page == s0:
+                    ckpt_jobs.append((i, pidx))
+        return s0, fulls, pjobs, ckpt_jobs
+
+    def _plan_checkpoint_inserts(self, reqs, lens, fulls, s0: int):
+        """Record the group's prompt pages in the radix tree before the
+        chunk loop runs: a page's checkpoint is the state after one chunk
+        of the loop, which the next chunk overwrites, so its copy is taken
+        right after that chunk. Returns ({chunk index -> [(row,
+        pool_idx)]}, hybrid ring-page copy jobs (row, pool_idx,
+        start_pos) of the same new pages)."""
+        page = self._page
+        ev0 = self._prefix.evictions
+        dr0 = self._prefix.insert_drops
+        protect: set = set()
+        # every row's matched chain joins the protect set first, so no
+        # row's insert evicts a page a group-mate matched: a re-inserted
+        # page below s0 would have no checkpoint in this run's grid
+        for i, r in enumerate(reqs):
+            if fulls[i]:
+                self._prefix.insert(r.prompt[:fulls[i]], protect)
+        by_chunk: Dict[int, list] = {}
+        ring_jobs: List = []
+        has_ring = self._caps.ring_bounded_context
+        for i, r in enumerate(reqs):
+            if has_ring and lens[i] > self._T:
+                continue        # hybrid: ring wrap overwrote early pages
+            for pidx, p0 in self._prefix.insert(r.prompt, protect):
+                by_chunk.setdefault((p0 - s0) // page, []).append((i, pidx))
+                if has_ring:
+                    ring_jobs.append((i, pidx, p0))
+        self.stats["prefix_evictions"] += self._prefix.evictions - ev0
+        self.stats["prefix_insert_drops"] += (self._prefix.insert_drops
+                                              - dr0)
+        return by_chunk, ring_jobs
+
+    def _scatter_checkpoints(self, gcache, jobs) -> None:
+        """Restore each warm row's conv/SSM state from the checkpoint of
+        the page ending at the group's horizon, jobs (row, pool_idx)."""
+        self._ensure_pool()
+        rows, idx = zip(*jobs)
+        self._state.scatter_checkpoints(gcache, self._pool, idx, rows)
+
+    def _insert_checkpoints(self, gcache, jobs) -> None:
+        """Copy the group cache's inter-chunk conv/SSM state rows into
+        pool checkpoint rows, jobs (row, pool_idx)."""
+        self._ensure_pool()
+        rows, idx = zip(*jobs)
+        self._state.insert_checkpoints(self._pool, gcache, rows, idx)
 
     def _ensure_pool(self) -> None:
         if self._pool is None:
@@ -808,19 +920,30 @@ class Engine:
         prefix cache, each request's cached positions below the warm
         horizon s0 (``_match_prefixes``) are scattered into its
         group-cache row first and the chunk loop covers only [s0, padded
-        max): the lengths past s0 pick the group shape."""
+        max): the lengths past s0 pick the group shape.
+
+        A recurrent family runs the same path on its fixed chunk grid:
+        warm rows restore the checkpoint at the group's full-page horizon
+        s0 (``_match_checkpoints``; hybrid also scatters its ring pages
+        below s0), the chunk loop starts at s0, and the pages recorded
+        before the loop take their checkpoints chunk by chunk."""
         t0 = time.perf_counter()
         for r in reqs:
             if r.submit_t is not None:
                 r.queue_wait_s = t0 - r.submit_t
         G = len(reqs)
         lens = [len(r.prompt) for r in reqs]
-        s0, jobs = 0, []
-        if self._prefix is not None:
+        caps = self._caps
+        s0, jobs, ckpt_jobs, ins_by_chunk, ring_jobs = 0, [], [], {}, []
+        if self._prefix is not None and caps.recurrent:
+            s0, fulls, jobs, ckpt_jobs = self._match_checkpoints(reqs)
+            ins_by_chunk, ring_jobs = self._plan_checkpoint_inserts(
+                reqs, lens, fulls, s0)
+        elif self._prefix is not None:
             s0, jobs = self._match_prefixes(reqs)
         P, C, Gp = self._group_shape(
             [n - s0 for n in lens],
-            whole=s0 > 0 and self._state.caps.capacity_follows_chunk)
+            whole=caps.recurrent or (s0 > 0 and caps.capacity_follows_chunk))
         toks = np.zeros((Gp, s0 + P), np.int64)
         lengths = np.zeros(Gp, np.int64)            # dummy rows: length 0
         for i, r in enumerate(reqs):
@@ -829,16 +952,21 @@ class Engine:
         if self._cache is None:
             self._cache = self._new_cache(self._B)
         gcache = self._new_cache(Gp)
+        if ckpt_jobs:
+            self._scatter_checkpoints(gcache, ckpt_jobs)
         if jobs:
             self._scatter_prefix_pages(gcache, jobs)
         last_logits = torch.zeros((Gp, self.cfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
         lengths_d = torch.as_tensor(lengths, device=self.device)
         toks_d = torch.as_tensor(toks, device=self.device)
-        for start in range(s0, s0 + P, C):
+        for j, start in enumerate(range(s0, s0 + P, C)):
             gcache, last_logits = self._prefill_chunk_impl(
                 gcache, toks_d[:, start:start + C], start, lengths_d,
                 last_logits)
+            if j in ins_by_chunk:
+                # before the next chunk overwrites the state in place
+                self._insert_checkpoints(gcache, ins_by_chunk[j])
         firsts = self._sample_first(last_logits, G).cpu().numpy()  # 1 sync
         budgets = np.zeros(Gp, np.int64)            # dummies: 0 -> unbound
         budgets[:G] = [r.max_new_tokens for r in reqs]
@@ -846,7 +974,9 @@ class Engine:
         free_arr[:G] = slots
         idx = self._bind_slots(firsts, budgets, free_arr)
         self._state.set_slots(self._cache, gcache, idx)
-        if self._prefix is not None:
+        if self._prefix is not None and caps.recurrent:
+            self._copy_ring_pages(gcache, ring_jobs)    # hybrid's rings
+        elif self._prefix is not None:
             self._insert_prefix_pages(gcache, reqs, lens)
         self.stats["host_syncs"] += 1
         self.stats["prefill_groups"] += 1

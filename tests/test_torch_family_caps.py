@@ -6,13 +6,14 @@
 ``FEATURES`` too; ``validate_serve_features`` returns the same row or
 raises the reference's exact message for every family x feature cell, on
 each family's reference config moved over by value (the port has no
-vlm, audio, ssm or hybrid config of its own yet). ``DecodeState`` asserts
-on a missing capability as the reference's does, and its checkpoint
-methods raise NotImplementedError for the recurrent families. The engine
-runs the validation pass before anything else, so a recurrent family
-asking for speculation gets the reference's ValueError, and otherwise
-the four unported families raise NotImplementedError naming ROADMAP
-queue 1 item 5; ``--policy auto`` on a MoE arch raises naming item 3.
+vlm or audio config of its own yet). ``DecodeState`` asserts on a
+missing capability as the reference's does, and its checkpoint methods
+delegate to the model for the recurrent families. The engine runs the
+validation pass before anything else, so a recurrent family asking for
+speculation gets the reference's ValueError; the two unported families
+raise NotImplementedError naming ROADMAP queue 1 item 5, and the
+recurrent ones construct. ``--policy auto`` on a MoE, ssm or hybrid
+arch raises naming item 3.
 """
 import dataclasses
 import types
@@ -38,7 +39,8 @@ ARCH_FOR = {
     "ssm": "mamba2-2.7b",
     "hybrid": "zamba2-1.2b",
 }
-UNPORTED = ("vlm", "audio", "ssm", "hybrid")
+UNPORTED = ("vlm", "audio")
+RECURRENT = ("ssm", "hybrid")
 FEATURE_KW = {
     "tensor-parallel serving": dict(tp=2),
     "speculative decoding": dict(drafter=True),
@@ -101,15 +103,26 @@ def test_matrix_cell_matches_reference(family, feature):
 
 
 def test_decode_state_asserts_on_missing_capability():
-    ssm = PS.DecodeState(_pair("ssm")[1])
+    """The ring methods assert on a recurrent row; the checkpoint methods
+    assert on a KV row and, on a recurrent one, copy whole-state rows
+    through the model (pool page 1 into batch row 0, then batch row 1
+    into pool page 0)."""
+    cfg = get_arch("mamba2-2.7b", reduced=True)
+    ssm = PS.DecodeState(cfg)
     with pytest.raises(AssertionError):
         ssm.ring_snapshot({}, None)              # no ring to snapshot
     with pytest.raises(AssertionError):
         ssm.ring_rewind({}, {}, None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ssm.scatter_checkpoints({}, {}, None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ssm.insert_checkpoints({}, {}, None, None)
+    cache = ssm.init(2, 16, device="cpu")
+    pool = ssm.page_pool(2, 16, device="cpu")
+    for k in ("conv", "state"):
+        pool[k][:, 1] = 3.0
+        cache[k][:, 1] = 5.0
+    assert ssm.scatter_checkpoints(cache, pool, [1], [0]) is cache
+    assert ssm.insert_checkpoints(pool, cache, [1], [0]) is pool
+    for k in ("conv", "state"):
+        assert bool((cache[k][:, 0] == 3).all())
+        assert bool((pool[k][:, 0] == 5).all())
     dense = PS.DecodeState(get_arch("tinyllama-1.1b", reduced=True))
     with pytest.raises(AssertionError):
         dense.scatter_checkpoints({}, {}, None, None)  # pages, not ckpts
@@ -132,13 +145,26 @@ def test_decode_state_delegates_to_the_model():
     assert st.page_bytes(4) == PT.cache_page_bytes(cfg, 4)
 
 
-@pytest.mark.parametrize("family", UNPORTED)
+@pytest.mark.parametrize("family", UNPORTED + RECURRENT)
 def test_engine_rejects_unported_families(family):
+    """vlm and audio raise naming ROADMAP queue 1 item 5; the recurrent
+    families construct, with their capability row, a chunk clamped to a
+    divisor of the ring and the page pinned to it."""
     _, cfg = _pair(family)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Engine(cfg, {}, ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        PT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if family in UNPORTED:
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            Engine(cfg, {}, ServeConfig(), device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            PT.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        return
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = Engine(cfg, params, ServeConfig(cache_len=60, prefill_chunk=16,
+                                          prefix_cache=True, prefix_page=4),
+                 device="cpu")
+    assert eng._caps is PS.CAPS[family] and eng._caps.recurrent
+    assert eng._chunk == eng._page == 15        # 60 % 16 != 0
 
 
 def test_engine_validates_features_first():
@@ -150,7 +176,8 @@ def test_engine_validates_features_first():
         Engine(cfg, {}, ServeConfig(drafter="ngram"), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
+                                  "mamba2-2.7b", "zamba2-1.2b"])
 def test_policy_auto_on_moe_raises(arch):
     cfg = get_arch(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):

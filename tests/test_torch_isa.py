@@ -56,10 +56,14 @@ def _packed(variant, K, N, seed):
 
 
 def _reduced_shapes():
+    """Every (K, N) of the reduced inventories, but the zero-width ones:
+    the inventory (the reference's too) lists an attention-free config's
+    absent attention and MLP at N = 0 or K = 0 (mamba2-2.7b has
+    ``n_heads=0``, ``d_ff=0``), which no instruction stream tiles."""
     seen = []
     for arch in ARCH_IDS:
         for _, K, N in model_matmuls(get_arch(arch, reduced=True)):
-            if (K, N) not in seen:
+            if K and N and (K, N) not in seen:
                 seen.append((K, N))
     return seen
 

@@ -196,9 +196,25 @@ def test_expert_stack_packs_layer_by_layer(variant):
     w = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (L, E, K, N)).astype(np.float32))
     qfn = PQ.quantize_fn(variant)
-    got = PL._pack_expert_stack(qfn, w)
+    got = PL._pack_stack(qfn, w, expert=True)
     whole = qfn(w.reshape(L, E * K, N))
     assert got.shape == (E * K, N) and got.num_layers == L
+    assert got.data.keys() == whole.data.keys()
+    for k in whole.data:
+        assert torch.equal(got.data[k], whole.data[k]), k
+
+
+@pytest.mark.parametrize("variant", ["q2_k", "q3_k", "q3_k_o", "q4_k"])
+def test_layer_stack_packs_layer_by_layer(variant):
+    """A stacked (L, K, N) layer weight, packed one layer at a time as
+    ``quantize_params`` packs it, gives the bytes of the whole stack."""
+    L, K, N = 3, 512, 72
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (L, K, N)).astype(np.float32))
+    qfn = PQ.quantize_fn(variant)
+    got = PL._pack_stack(qfn, w, expert=False)
+    whole = qfn(w)
+    assert got.shape == (K, N) and got.num_layers == L
     assert got.data.keys() == whole.data.keys()
     for k in whole.data:
         assert torch.equal(got.data[k], whole.data[k]), k
