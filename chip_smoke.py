@@ -214,17 +214,53 @@ Phases, each of which exits nonzero on failure:
    chunk each: SSM state, conv tail and ring): cache off, then on twice;
    the same tokens, 13 + 112 launches a forward, at least 4 hits then 8,
    and the cold and warm prefill tok/s printed.
+27. disaggregated serving, slice 9 (path 20, run after phase 18 on its
+   weights): full-width tinyllama-1.1b under extended_mix with the fused
+   attention, phase 18's queue plus one sub-page prompt, through
+   ``DisaggEngine`` (prefill workers, KV page hand-off through host
+   memory, decode workers behind the KV-aware router). 1P+1D greedy
+   tokens equal the monolithic engine's with the prefix cache off and
+   on, and so do 1P+1D at temperature 0.8 (seed 7), 1P+1D with int8 KV
+   and 2P+2D greedy (both decode workers used); pages migrate, the
+   sub-page prompt goes straight to decode, the decode tier's prefix
+   cache hits; every forward of either tier launches 110 q3_k + 44 q4_k
+   + 1 q6_k kernels and every prefill-chunk forward 22 attention kernels.
+   The pages the prefill worker exports equal, bit for bit, those the
+   monolithic prefix-on engine exports for the same prompts; export,
+   import into a fresh engine and export again give the same bits. The
+   monolithic and 1P+1D prefill and decode tok/s and TTFT p50/p99, the
+   export and import ms a request and the bytes a page are printed.
+28. disaggregated MoE, slice 9 (path 21, after phase 22 on its weights):
+   olmoe-1b-7b (fused) 1P+1D on the first 4 requests of phase 18's queue
+   with 512 MiB pools, 8 new tokens: tokens equal the monolithic
+   engine's, 33 q2_k + 32 q3_k launches a forward, 16 attention launches
+   a prefill-chunk forward.
+29. the HTTP front end, slice 9 (path 22, after phase 20 on path 1's
+   weights): a ``Frontend`` on an ephemeral loopback port over path 1's
+   engine, then over a 1P+1D ``DisaggEngine``. The engine thread runs on
+   the stream the engine was built on; 8 concurrent ``http.client``
+   clients, 4 of them SSE, get ``Engine.generate``'s tokens in whole
+   forwards of 45 q2_k + 110 q3_k launches; a ``timeout_s`` request
+   finishes "timeout" with a prefix of its tokens; a client that
+   disconnects mid-stream is cancelled and its slot freed; the three
+   GETs answer. On an engine with ``max_slots=1, max_queue=1`` (its one
+   slot held by a gate in the running request's decode chunk) a third
+   request gets 429 ``queue_full``. Client TTFT p50/p99 is printed.
+   Phases 27-29 each print their wall time.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import http.client
 import json
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -356,6 +392,10 @@ PREFIX_CAPACITY_REC = 20
 TOL_SSM = 2.0 ** -6     # layer 0's mamba2_forward, card vs CPU, bf16 out:
                         # in_proj's bf16 output rounds differently where
                         # the f32 sums differ, and the scan carries it on
+# slice 9: disaggregated serving and the HTTP front end. Path 20 is path
+# 11's queue plus one sub-page prompt (direct to decode) on tinyllama;
+# path 21 the first requests of that queue on olmoe (fused, 512 MiB pools)
+N_MOE_DISAGG, MOE_DISAGG_TOKENS = 4, 8
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -1512,6 +1552,17 @@ def chunk_attn_timing(torch, PA, eng, prompts, n_layers, tag, what):
     return timing
 
 
+def prefix_prompts(np, cfg):
+    """Path 11's queue: ``N_REQUESTS`` prompts of one ``SHARED_PREFIX``-token
+    prefix and a suffix of ``SUFFIX_RANGE`` tokens each."""
+    rng = np.random.default_rng(18)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
+    return [shared + [int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(n))]
+        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
+                              N_REQUESTS)]
+
+
 def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev,
                  per_forward=EXTENDED_PER_FORWARD, scfg=SERVE_PREFIX,
                  capacity=PREFIX_CAPACITY, tag="prefix", phase="18",
@@ -1523,12 +1574,7 @@ def phase_prefix(torch, np, cfg, qp, Engine, ServeConfig, PB, PA, dev,
     and timed. Returns (matmul launches, attention launches, stats,
     attention timing)."""
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(18)
-    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, SHARED_PREFIX)]
-    prompts = [shared + [int(t) for t in rng.integers(
-        0, cfg.vocab_size, int(n))]
-        for n in rng.integers(SUFFIX_RANGE[0], SUFFIX_RANGE[1] + 1,
-                              N_REQUESTS)]
+    prompts = prefix_prompts(np, cfg)
     off = Engine(cfg, qp, ServeConfig(**scfg), device=dev)
     res_off, s_off, _, _ = _served(torch, off, prompts, PB, warm=warm)
     on = Engine(cfg, qp, ServeConfig(**scfg, prefix_cache=True),
@@ -1853,10 +1899,12 @@ def phase_expert_timing(torch, cfg, qp, PM, T, dev, tag):
 
 
 def phase_slice7(torch, np, get_arch, T, quantize_params, variant_counts,
-                 get_policy, Engine, ServeConfig, PB, PA, PM, Q, dev):
-    """Phases 21-23: the MoE family at full width. Returns (matmul
-    launches by path, attention launches by path, per-shape matmul timing
-    by arch, results for the summary line)."""
+                 get_policy, Engine, ServeConfig, DisaggEngine, PB, PA, PM, Q,
+                 dev):
+    """Phases 21-23: the MoE family at full width, and slice 9's phase 28
+    (olmoe disaggregated) on phase 22's weights. Returns (matmul launches
+    by path, attention launches by path, per-shape matmul timing by arch,
+    results for the summary line)."""
     launches, attn, timing, out = {}, {}, {}, {}
     for arch, counts, per_forward in MOE_MODELS:
         t_phase = time.perf_counter()
@@ -1942,6 +1990,10 @@ def phase_slice7(torch, np, get_arch, T, quantize_params, variant_counts,
                 "prefix": prefix_stats, "warm_attn_timing": attn_timing}
             print(f"[moe] {arch} fused phase 22 took "
                   f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+            key = f"{arch}_disagg_1p1d"
+            launches[key], attn[key], out["disagg"] = phase_disagg_moe(
+                torch, np, cfg2, qp, Engine, ServeConfig, DisaggEngine, PB,
+                PA, dev, per_forward)
         out[arch] = res
         del qp
         torch.cuda.empty_cache()
@@ -2174,11 +2226,428 @@ def phase_slice8(torch, np, get_arch, T, M2, quantize_params, variant_counts,
     return launches, timing, out
 
 
+def _routed(torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, dev, scfg,
+            prompts, per_forward, tag, p=1, d=1):
+    """``prompts`` through a fresh pP+dD ``DisaggEngine`` (the main path)
+    with the launch counts zeroed just before and read just after; every
+    forward of either tier launches ``per_forward`` matmul kernels, every
+    prefill-chunk forward ``cfg.n_layers`` attention kernels. Returns
+    (engine, tokens, stats, matmul launches, attention launches, wall s)."""
+    dis = DisaggEngine(cfg, qp, ServeConfig(**scfg), prefill_workers=p,
+                       decode_workers=d, device=dev)
+    torch.cuda.synchronize()
+    PB.reset_launches()
+    PA.reset_launches()
+    t0 = time.perf_counter()
+    res = dis.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = dict(dis.stats)
+    lw, aw = dict(PB.launches), PA.launches["prefill_attn"]
+    _check_launches(tag, PB, lw, s, per_forward)
+    check(aw == cfg.n_layers * s["prefill_forwards"],
+          f"{tag}: {aw} attention launches over {s['prefill_forwards']} "
+          "prefill-chunk forwards")
+    rt = s["router"]
+    print(f"[{tag}] {len(res)} requests in {wall:.3f}s: "
+          f"{_engine_rates(s)}, ttft p50 {s['ttft_p50_s'] * 1e3:.1f} ms, "
+          f"p99 {s['ttft_p99_s'] * 1e3:.1f} ms; migrated "
+          f"{s['migrated_pages']} pages for {s['migrated_requests']} "
+          f"requests, direct-to-decode {rt['direct_decode']}, decode-tier "
+          f"prefix_hits {s['prefix_hits']}, decode requests "
+          f"{rt['decode_requests']}, {s['prefill_forwards']} prefill-chunk "
+          f"forwards of {s['forwards']}", flush=True)
+    check(s["migrated_pages"] > 0 and s["prefix_hits"] > 0,
+          f"{tag}: no page migrated or reused")
+    check(all(len(t) == scfg["max_new_tokens"] for t in res),
+          f"{tag}: a request did not get its tokens")
+    return dis, res, s, lw, aw, wall
+
+
+def _payload_bytes(kv) -> int:
+    return sum(v.numel() * v.element_size() for v in kv.payload.values())
+
+
+def phase_disagg(torch, np, cfg, qp, Engine, ServeConfig, DisaggEngine, PB,
+                 PA, dev):
+    """Phase 27 (path 20): path 11's queue plus one sub-page prompt on
+    full-width tinyllama (extended_mix, fused attention) through the
+    disaggregated path, held token for token to the monolithic engine:
+    1P+1D greedy (cache off and on), at temperature 0.8, with int8 KV, and
+    2P+2D greedy; the prefill worker's pages against the monolithic
+    engine's bit for bit; export, import, export bit for bit. Returns
+    (matmul launches by path, attention launches by path, summary)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(27)
+    prompts = prefix_prompts(np, cfg) + [
+        [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                      SERVE_PREFIX["prefix_page"] // 2)]]
+    scfg, per_forward = SERVE_PREFIX, EXTENDED_PER_FORWARD
+    off = Engine(cfg, qp, ServeConfig(**scfg), device=dev)
+    mono, s_mono, _, wall_mono = _served(torch, off, prompts, PB)
+    on = Engine(cfg, qp, ServeConfig(**scfg, prefix_cache=True), device=dev)
+    check(on.generate(prompts) == mono,
+          "disagg: the monolithic prefix-on engine differs from cache-off")
+    print(f"[disagg] monolithic: {len(mono)} requests in {wall_mono:.3f}s: "
+          f"{_engine_rates(s_mono)}, ttft p50 "
+          f"{s_mono['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{s_mono['ttft_p99_s'] * 1e3:.1f} ms", flush=True)
+    launches, attn, out = {}, {}, {"monolithic": _rates(s_mono)}
+    dis, res, s1, launches["disagg_1p1d"], attn["disagg_1p1d"], _ = _routed(
+        torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, dev, scfg,
+        prompts, per_forward, "disagg 1P+1D")
+    check(res == mono, "disagg 1P+1D: tokens differ from the monolithic "
+                       "engine's")
+    check(s1["router"]["direct_decode"] == 1,
+          "disagg 1P+1D: the sub-page prompt did not go straight to decode")
+    out["1p1d"] = _rates(s1)
+
+    # the prefill worker's pages against the monolithic engine's, and a
+    # round trip through a fresh engine, timed a request
+    worker = dis.prefill_engines[0]
+    dst = Engine(cfg, qp, ServeConfig(**scfg, prefix_cache=True), device=dev)
+    exp_ms, imp_ms, same, trip = [], [], True, True
+    for p in prompts[:N_REQUESTS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = worker.export_kv_pages(p)
+        exp_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = on.export_kv_pages(p)
+        same &= (kv.n_pages > 0 and kv.tokens == ref.tokens
+                 and set(kv.payload) == set(ref.payload)
+                 and all(_bytes_equal(torch, kv.payload[k], ref.payload[k])
+                         for k in ref.payload))
+        t0 = time.perf_counter()
+        dst.import_kv_pages(kv)
+        torch.cuda.synchronize()
+        imp_ms.append((time.perf_counter() - t0) * 1e3)
+        back = dst.export_kv_pages(p)
+        trip &= (back.tokens == kv.tokens and all(
+            _bytes_equal(torch, back.payload[k], v)
+            for k, v in kv.payload.items()))
+    page_bytes = _payload_bytes(kv) // kv.n_pages
+    print(f"[disagg] prefill worker's pages == the monolithic prefix-on "
+          f"engine's bit for bit, {N_REQUESTS} prompts: {same}; export -> "
+          f"import -> export bit for bit: {trip}", flush=True)
+    check(same, "disagg: the prefill worker's pages differ from the "
+                "monolithic engine's")
+    check(trip, "disagg: export -> import -> export changed a bit")
+    out["handoff"] = {
+        "export_ms_mean": statistics.mean(exp_ms),
+        "export_ms_max": max(exp_ms),
+        "import_ms_mean": statistics.mean(imp_ms),
+        "import_ms_max": max(imp_ms), "bytes_per_page": page_bytes,
+        "pages_per_request": kv.n_pages}
+    print(f"[disagg] hand-off a request ({kv.n_pages} pages of "
+          f"{page_bytes / 2**20:.3f} MiB): export mean "
+          f"{statistics.mean(exp_ms):.3f} ms (max {max(exp_ms):.3f}), import "
+          f"mean {statistics.mean(imp_ms):.3f} ms (max {max(imp_ms):.3f}; "
+          f"a chain already resident dedups) (host clocks, synced)",
+          flush=True)
+
+    mono_t = Engine(cfg, qp, ServeConfig(**scfg, **TEMP5),
+                    device=dev).generate(prompts)
+    _, res_t, _, launches["disagg_1p1d_t08"], attn["disagg_1p1d_t08"], _ = \
+        _routed(torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, dev,
+                dict(scfg, **TEMP5), prompts, per_forward,
+                "disagg 1P+1D t=0.8")
+    print(f"[disagg] temperature 0.8 seed 7: 1P+1D == monolithic: "
+          f"{res_t == mono_t}; sampled != greedy: {mono_t != mono}",
+          flush=True)
+    check(res_t == mono_t and mono_t != mono,
+          "disagg: sampled tokens differ from the monolithic engine's")
+    cfg8 = cfg.replace(kv_cache_quant=True)
+    mono8 = Engine(cfg8, qp, ServeConfig(**scfg), device=dev).generate(
+        prompts)
+    _, res8, _, launches["disagg_1p1d_kv8"], attn["disagg_1p1d_kv8"], _ = \
+        _routed(torch, DisaggEngine, ServeConfig, PB, PA, cfg8, qp, dev,
+                scfg, prompts, per_forward, "disagg 1P+1D int8 KV")
+    print(f"[disagg] int8 KV: 1P+1D == monolithic: {res8 == mono8}",
+          flush=True)
+    check(res8 == mono8, "disagg: int8-KV tokens differ from the "
+                         "monolithic engine's")
+    _, res22, s22, launches["disagg_2p2d"], attn["disagg_2p2d"], _ = _routed(
+        torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, dev, scfg,
+        prompts, per_forward, "disagg 2P+2D", p=2, d=2)
+    print(f"[disagg] 2P+2D == monolithic: {res22 == mono}", flush=True)
+    check(res22 == mono, "disagg 2P+2D: tokens differ from the monolithic "
+                         "engine's")
+    check(all(n > 0 for n in s22["router"]["decode_requests"]),
+          "disagg 2P+2D: a decode worker was not used")
+    out["2p2d"] = _rates(s22)
+    print(f"[disagg] phase 27 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, attn, out
+
+
+def _rates(s):
+    return {"prefill_tok_per_s": s["prefill_tok_per_s"],
+            "decode_tok_per_s": s["tok_per_s"],
+            "ttft_p50_s": s["ttft_p50_s"], "ttft_p99_s": s["ttft_p99_s"]}
+
+
+def phase_disagg_moe(torch, np, cfg, qp, Engine, ServeConfig, DisaggEngine,
+                     PB, PA, dev, per_forward):
+    """Phase 28 (path 21): olmoe (fused) 1P+1D on the first
+    ``N_MOE_DISAGG`` requests of path 11's queue, a 512 MiB pool each
+    worker: tokens equal the monolithic engine's. Returns (matmul
+    launches, attention launches, rates)."""
+    t_phase = time.perf_counter()
+    prompts = prefix_prompts(np, cfg)[:N_MOE_DISAGG]
+    scfg = dict(SERVE_PREFIX_MOE, max_new_tokens=MOE_DISAGG_TOKENS)
+    mono = Engine(cfg, qp, ServeConfig(**scfg), device=dev).generate(prompts)
+    _, res, s, launches, attn, _ = _routed(
+        torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, dev, scfg,
+        prompts, per_forward, "moe disagg 1P+1D")
+    print(f"[moe disagg] 1P+1D == monolithic: {res == mono}; phase 28 took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    check(res == mono, "moe disagg: tokens differ from the monolithic "
+                       "engine's")
+    return launches, attn, _rates(s)
+
+
+class _Gate:
+    """Parks an engine's ``_run_chunk`` (on the engine thread) while held."""
+
+    def __init__(self, eng):
+        self.open = threading.Event()
+        self.open.set()
+        self.parked = threading.Event()
+        run_chunk = eng._run_chunk
+
+        def gated():
+            if not self.open.is_set():
+                self.parked.set()
+                self.open.wait(120)
+            run_chunk()
+        eng._run_chunk = gated
+
+
+def _wait_for(cond, what, limit=60.0):
+    deadline = time.perf_counter() + limit
+    while time.perf_counter() < deadline:
+        if cond():
+            return
+        time.sleep(0.005)
+    fail(f"frontend: timed out waiting for {what}")
+
+
+def _http(port, method, path, payload=None, timeout=120.0):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, None if payload is None
+                 else json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    return resp.status, body
+
+
+def _client(port, prompt, max_tokens, stream, out, i):
+    """One client: POST a completion; SSE reads event by event. Records
+    (tokens, finish_reason, s to the first token or None, s in all)."""
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v1/completions", json.dumps(dict(
+        prompt=prompt, max_tokens=max_tokens, stream=stream)),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if not stream:
+        body = json.loads(resp.read())
+        ch = body["choices"][0]
+        out[i] = (ch["token_ids"], ch["finish_reason"], None,
+                  time.perf_counter() - t0)
+    else:
+        toks, first, fin = [], None, None
+        while True:
+            line = resp.readline()
+            if not line or line.strip() == b"data: [DONE]":
+                break
+            if not line.startswith(b"data: "):
+                continue
+            ch = json.loads(line[6:])["choices"][0]
+            if "token_id" in ch:
+                toks.append(ch["token_id"])
+                if first is None:
+                    first = time.perf_counter() - t0
+            if ch.get("finish_reason"):
+                fin = ch["finish_reason"]
+        out[i] = (toks, fin, first, time.perf_counter() - t0)
+    conn.close()
+
+
+def phase_frontend(torch, np, cfg, qp, prompts, Engine, ServeConfig,
+                   DisaggEngine, FE, PB, dev):
+    """Phase 29 (path 22): the HTTP front end on an ephemeral loopback port
+    over path 1's engine (full-width tinyllama, paper_llama_mix), then
+    over a 1P+1D DisaggEngine. Each: 8 concurrent clients, 4 of them SSE,
+    get ``Engine.generate``'s tokens; a ``timeout_s`` request finishes
+    "timeout" with its partial tokens; a client that disconnects
+    mid-stream frees its slot; the GETs answer. Then a max_slots=1,
+    max_queue=1 engine refuses a third request with 429 queue_full.
+    Returns (matmul launches by path, summary)."""
+    t_phase = time.perf_counter()
+    budget = SERVE["max_new_tokens"]
+    expect = Engine(cfg, qp, ServeConfig(**SERVE), device=dev).generate(
+        prompts)
+    launches, out = {}, {}
+    for kind in ("engine", "disagg"):
+        tag = f"http {kind}"
+        if kind == "engine":
+            eng = serving = Engine(cfg, qp, ServeConfig(**SERVE), device=dev)
+        else:
+            eng = DisaggEngine(cfg, qp, ServeConfig(**SERVE), device=dev)
+            serving = eng.decode_engines[0]
+        fe = FE.Frontend(eng, FE.FrontendConfig(
+            model_name=cfg.name, request_timeout_s=300.0)).start()
+        try:
+            _wait_for(lambda: fe.engine_stream is not None,
+                      "the engine thread")
+            main_stream = torch.cuda.current_stream(dev)
+            print(f"[{tag}] listening on port {fe.port}; engine thread's "
+                  f"stream == the stream the engine was built on: "
+                  f"{fe.engine_stream == main_stream}", flush=True)
+            check(fe.engine_stream == main_stream,
+                  f"{tag}: the engine thread runs on another stream")
+            torch.cuda.synchronize()
+            PB.reset_launches()
+            res = [None] * len(prompts)
+            threads = [threading.Thread(target=_client, args=(
+                fe.port, p, budget, i % 2 == 0, res, i))
+                for i, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            lw = dict(PB.launches)
+            launches[f"http_{kind}"] = lw
+            check(all(r is not None for r in res), f"{tag}: a client hung")
+            toks = [r[0] for r in res]
+            ttft = [r[2] for r in res if r[2] is not None]
+            lat = [r[3] for r in res]
+            print(f"[{tag}] 8 concurrent clients (4 SSE) in {wall:.3f}s: "
+                  f"tokens == Engine.generate: {toks == expect}; client "
+                  f"TTFT (SSE) p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
+                  f"p99 {np.percentile(ttft, 99) * 1e3:.1f} ms; latency p50 "
+                  f"{np.percentile(lat, 50) * 1e3:.1f} ms; matmul launches "
+                  f"{lw}", flush=True)
+            check(toks == expect, f"{tag}: tokens differ from "
+                                  "Engine.generate's")
+            check(all(r[1] == "length" for r in res),
+                  f"{tag}: finish reasons {[r[1] for r in res]}")
+            fwd = lw["q2_k"] // KV8_PER_FORWARD["q2_k"]
+            check(fwd > 0 and lw == {v: KV8_PER_FORWARD.get(v, 0) * fwd
+                                     for v in PB.VARIANTS},
+                  f"{tag}: launches {lw} are not whole forwards of "
+                  f"{KV8_PER_FORWARD}")
+            out[kind] = {"wall_s": wall, "forwards": fwd,
+                         "client_ttft_p50_s": float(np.percentile(ttft, 50)),
+                         "client_ttft_p99_s": float(np.percentile(ttft, 99)),
+                         "latency_p50_s": float(np.percentile(lat, 50))}
+
+            status, body = _http(fe.port, "POST", "/v1/completions", dict(
+                prompt=prompts[0], max_tokens=50, timeout_s=0.001))
+            ch = body["choices"][0]
+            kept = ch["token_ids"]
+            n = min(len(kept), budget)
+            print(f"[{tag}] timeout_s=0.001: {status} finish_reason "
+                  f"{ch['finish_reason']}, {len(kept)} of 50 tokens kept, "
+                  f"their first {n} the greedy run's: "
+                  f"{kept[:n] == expect[0][:n]}", flush=True)
+            check(status == 200 and ch["finish_reason"] == "timeout"
+                  and len(kept) < 50 and kept[:n] == expect[0][:n],
+                  f"{tag}: the timeout request did not finish 'timeout' "
+                  "with its partial tokens")
+
+            sock = socket.create_connection(("127.0.0.1", fe.port),
+                                            timeout=120)
+            payload = json.dumps(dict(prompt=prompts[1], max_tokens=50,
+                                      stream=True)).encode()
+            sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                         b"Content-Type: application/json\r\n"
+                         + f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                         + payload)
+            check(bool(sock.recv(64)), f"{tag}: the stream did not start")
+            sock.close()
+            _wait_for(lambda: fe.stats["disconnects"] > 0,
+                      "the disconnect to cancel its request")
+            _wait_for(lambda: all(r is None for r in serving._slots),
+                      "the disconnected request's slot to free")
+            status, body = _http(fe.port, "POST", "/v1/completions", dict(
+                prompt=prompts[2], max_tokens=budget))
+            check(status == 200 and body["choices"][0]["token_ids"]
+                  == expect[2], f"{tag}: no request served after the "
+                                "disconnect")
+            print(f"[{tag}] a client disconnected mid-stream: cancelled, "
+                  f"slot freed, the next request served", flush=True)
+            gets = {path: _http(fe.port, "GET", path) for path in (
+                "/health", "/v1/models", "/stats")}
+            check(all(st == 200 for st, _ in gets.values())
+                  and gets["/health"][1]["status"] == "ok"
+                  and gets["/v1/models"][1]["data"][0]["id"] == cfg.name
+                  and gets["/stats"][1]["frontend"]["completions"] >= 10,
+                  f"{tag}: GETs {gets}")
+            json.dumps(eng.stats)
+            print(f"[{tag}] GET /health, /v1/models, /stats: 200; frontend "
+                  f"stats {gets['/stats'][1]['frontend']}", flush=True)
+        finally:
+            fe.close()
+
+    # saturation: A holds the one slot (parked in its decode chunk), B
+    # queues, C is refused
+    eng = Engine(cfg, qp, ServeConfig(**dict(SERVE, max_slots=1,
+                                             max_queue=1)), device=dev)
+    gate = _Gate(eng)
+    fe = FE.Frontend(eng, FE.FrontendConfig(model_name=cfg.name)).start()
+    try:
+        gate.open.clear()
+        conns = [http.client.HTTPConnection("127.0.0.1", fe.port,
+                                            timeout=300) for _ in range(3)]
+        try:
+            conns[0].request("POST", "/v1/completions", json.dumps(dict(
+                prompt=prompts[0], max_tokens=40, stream=True)))
+            ra = conns[0].getresponse()
+            _wait_for(gate.parked.is_set, "A to reach its decode chunk")
+            for i, conn in enumerate(conns[1:], 1):
+                conn.request("POST", "/v1/completions", json.dumps(dict(
+                    prompt=prompts[i], max_tokens=2)))
+                _wait_for(lambda: fe._inbox.qsize() >= i,
+                          f"request {'BC'[i - 1]} in the inbox")
+        finally:
+            gate.open.set()
+        rc = conns[2].getresponse()
+        body_c = json.loads(rc.read())
+        rb = conns[1].getresponse()
+        body_b = json.loads(rb.read())
+        done_a = ra.read().endswith(b"data: [DONE]\n\n")
+        for conn in conns:
+            conn.close()
+    finally:
+        fe.close()
+    err = body_c.get("error", {})
+    print(f"[http saturation] max_slots=1, max_queue=1: third request "
+          f"{rc.status} {err.get('type')} {err.get('reason')}; the queued "
+          f"one {rb.status}, the running one finished: {done_a}", flush=True)
+    check(rc.status == 429 and err.get("reason") == "queue_full",
+          f"http saturation: expected 429 queue_full, got {rc.status} "
+          f"{body_c}")
+    check(rb.status == 200 and body_b["choices"][0]["token_ids"]
+          == expect[1][:2] and done_a,
+          "http saturation: the queued or running request did not serve")
+    print(f"[http] phase 29 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, out
+
+
 def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
-                 get_policy, Engine, ServeConfig, EngineSaturated, PB, PA, Q,
-                 ops, dev):
-    """Phases 17-20 on full-width tinyllama-1.1b. Returns (matmul launches
-    by path, attention launches by path, results for the kernels line)."""
+                 get_policy, Engine, ServeConfig, EngineSaturated,
+                 DisaggEngine, FE, PB, PA, Q, ops, dev):
+    """Phases 17-20 on full-width tinyllama-1.1b, and slice 9's phases 29
+    (the front end, on path 1's weights) and 27 (disaggregated, on path
+    11's). Returns (matmul launches by path, attention launches by path,
+    results for the kernels line)."""
     launches, attn, out = {}, {}, {}
     qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
                          get_policy, "paper_llama_mix", dev, KV8_PER_FORWARD,
@@ -2194,6 +2663,10 @@ def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
     launches.update({f"spec_{k}": v for k, v in spec_launches.items()})
     launches["slo"] = phase_slo(torch, cfg, qp, prompts, Engine,
                                 ServeConfig, EngineSaturated, PB, dev)
+    http_launches, out["frontend"] = phase_frontend(
+        torch, np, cfg, qp, prompts, Engine, ServeConfig, DisaggEngine, FE,
+        PB, dev)
+    launches.update(http_launches)
     del qp
     torch.cuda.empty_cache()
     cfg2 = cfg.replace(attn_impl="fused")
@@ -2203,6 +2676,10 @@ def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
     (launches["prefix_cache"], attn["prefix_cache"], out["prefix"],
      out["warm_attn_timing"]) = phase_prefix(
         torch, np, cfg2, qp, Engine, ServeConfig, PB, PA, dev)
+    dl, da, out["disagg"] = phase_disagg(
+        torch, np, cfg2, qp, Engine, ServeConfig, DisaggEngine, PB, PA, dev)
+    launches.update(dl)
+    attn.update(da)
     del qp
     torch.cuda.empty_cache()
     return launches, attn, out
@@ -2234,6 +2711,8 @@ def main() -> None:
     from repro_torch.models import mamba2 as M2
     from repro_torch.models import moe as PM
     from repro_torch.models import transformer as T
+    from repro_torch.serving import frontend as FE
+    from repro_torch.serving.disagg import DisaggEngine
     from repro_torch.serving.engine import (Engine, EngineSaturated,
                                             ServeConfig)
 
@@ -2349,12 +2828,13 @@ def main() -> None:
     # slice 6: int8 KV, speculative decoding, SLO admission, prefix cache
     launches6, attn6, slice6 = phase_slice6(
         torch, np, cfg, T, quantize_params, variant_counts, get_policy,
-        Engine, ServeConfig, EngineSaturated, PB, PA, Q, ops, dev)
+        Engine, ServeConfig, EngineSaturated, DisaggEngine, FE, PB, PA, Q,
+        ops, dev)
 
     # slice 7: the MoE family at full width, fused, prefix cache
     launches7, attn7, timing7, slice7 = phase_slice7(
         torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
-        Engine, ServeConfig, PB, PA, PM, Q, dev)
+        Engine, ServeConfig, DisaggEngine, PB, PA, PM, Q, dev)
 
     # slice 8: the recurrent families at full width, the checkpoint
     # prefix cache
@@ -2451,6 +2931,9 @@ def main() -> None:
     summary6 = {k: slice6[k] for k in ("kv8", "spec", "prefix")}
     print(f"[slice6] summary: {json.dumps(summary6)}", flush=True)
     print(f"[slice7] summary: {json.dumps(slice7)}", flush=True)
+    summary9 = {"disagg": slice6["disagg"], "frontend": slice6["frontend"],
+                f"{MOE_FUSED}_disagg": slice7["disagg"]}
+    print(f"[slice9] summary: {json.dumps(summary9)}", flush=True)
     print(f"[slice8] summary: {json.dumps(slice8)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)

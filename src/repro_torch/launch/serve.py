@@ -18,6 +18,13 @@ queue of requests through the continuous-batching engine.
       --policy paper_llama_mix --tokens 32 --drafter ngram --draft-k 4 \
       --prefix-cache --shared-prefix 64 --max-queue 16 --preempt
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy paper_llama_mix --disagg --prefill-workers 2 \
+      --decode-workers 2 --shared-prefix 20 --prompt-len 18 --prefix-page 8
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy paper_llama_mix --http --port 8000 --request-timeout 60
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --prompt-len 384 --prefill-chunk 128 --cache-len 1024 --tokens 32 \
       --prefix-cache --shared-prefix 384 --prefix-bytes 1073741824
@@ -46,6 +53,14 @@ the float weights (plain ``torch.matmul``, no kernel). ``--drafter``
 ``--prefix-bytes``; ``--shared-prefix N`` prepends N shared tokens to
 every prompt, the workload it serves), and ``--max-queue``/``--preempt``
 SLO admission; the stats line then reports acceptance and prefix reuse.
+``--disagg`` serves through ``--prefill-workers`` prefill and
+``--decode-workers`` decode engines behind the KV-aware router (KV-ring
+families only: on mamba2-2.7b or zamba2-1.2b it raises the
+``DisaggEngine``'s ValueError), and its stats line gains the router's
+counts. ``--http`` serves the HTTP front end on ``--host``/``--port``
+(``--request-timeout`` the default per-request ceiling) over either
+engine, instead of draining the synthetic queue; it blocks until
+interrupted.
 The weights, the prompts and the sampling stream are random, drawn from
 ``--seed`` (default 0). The model runs on the GPU (``--device cuda``, the
 default; it raises where there is none). Add ``--reduced --device cpu``
@@ -67,6 +82,7 @@ from repro_torch.core.qlinear import (quantize_params, quantized_param_bytes,
                                       variant_counts)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.serving.disagg import DisaggEngine
 from repro_torch.serving.engine import Engine, ServeConfig
 
 
@@ -111,7 +127,8 @@ def resolve_policy(cfg, params, *, policy: str, arch: str,
 
 def main(argv=None):
     """Run the launcher on ``argv``; returns ``(engine, results)``, the
-    engine after its run and ``{request id: tokens}``."""
+    engine after its run and ``{request id: tokens}`` (``{}`` under
+    ``--http``, once the server stops)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -187,6 +204,29 @@ def main(argv=None):
     ap.add_argument("--preempt", action="store_true",
                     help="let a strictly higher-priority queued request "
                          "preempt the lowest-priority running slot")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: prefill-worker and "
+                         "decode-worker engines behind a KV-aware radix "
+                         "router; prefilled KV pages migrate to the decode "
+                         "tier (routed output stays the monolithic "
+                         "engine's tokens)")
+    ap.add_argument("--prefill-workers", type=int, default=1,
+                    help="prefill-tier engines (--disagg)")
+    ap.add_argument("--decode-workers", type=int, default=1,
+                    help="decode-tier engines (--disagg)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve an OpenAI-style HTTP front end (POST "
+                         "/v1/completions with a token-id prompt, SSE "
+                         "streaming, per-request priority/deadline_s/"
+                         "timeout_s; GET /health, /v1/models, /stats) "
+                         "instead of draining a synthetic queue")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="--http listen address")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="--http listen port (0 = ephemeral)")
+    ap.add_argument("--request-timeout", type=float, default=120.0,
+                    help="--http default per-request wall ceiling in "
+                         "seconds (a request's timeout_s overrides it)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -231,7 +271,22 @@ def main(argv=None):
                        prefix_page=args.prefix_page,
                        prefix_bytes=args.prefix_bytes,
                        max_queue=args.max_queue, preempt=args.preempt)
-    engine = Engine(cfg, qp, scfg, device=dev)
+    if args.disagg:
+        print(f"disaggregated: {args.prefill_workers} prefill + "
+              f"{args.decode_workers} decode worker(s), KV-aware router")
+        engine = DisaggEngine(cfg, qp, scfg,
+                              prefill_workers=args.prefill_workers,
+                              decode_workers=args.decode_workers,
+                              device=dev)
+    else:
+        engine = Engine(cfg, qp, scfg, device=dev)
+    if args.http:
+        from repro_torch.serving.frontend import FrontendConfig, serve_forever
+        serve_forever(engine, FrontendConfig(
+            host=args.host, port=args.port, model_name=args.arch,
+            request_timeout_s=args.request_timeout,
+            max_tokens_default=args.tokens))
+        return engine, {}
     on_token = None
     if args.stream:
         on_token = lambda rid, tok: print(f"  [req {rid}] += {tok}")
@@ -245,7 +300,7 @@ def main(argv=None):
     for rid in ids[:4]:
         print(f"req {rid}: {results[rid]}")
     s = engine.stats
-    spec = prefix = ""
+    spec = prefix = disagg = ""
     if args.drafter is not None:
         spec = (f", spec accept {s['accept_rate']:.0%} "
                 f"({s['draft_accepted']}/{s['draft_tokens']} drafts over "
@@ -255,12 +310,18 @@ def main(argv=None):
         prefix = (f", prefix hits {hits:.0%} ({s['prefix_tokens_reused']} "
                   f"tokens reused, {s['prefix_evictions']} evictions, "
                   f"{s['prefix_insert_drops']} insert drops)")
+    if args.disagg:
+        rt = s["router"]
+        disagg = (f", router: {rt['migrated_pages_total']} pages migrated, "
+                  f"prefill hit rates {rt['prefill_hit_rate']}, "
+                  f"{rt['direct_decode']} direct-to-decode, peak depths "
+                  f"P{rt['prefill_peak_depth']}/D{rt['decode_peak_depth']}")
     print(f"prefill {s['prefill_s']:.3f}s ({s['prefill_tok_per_s']:.1f} "
           f"tok/s, {s['prefill_groups']} groups, mean ttft "
           f"{s['ttft_s'] * 1e3:.1f}ms), decode {s['decode_s']:.3f}s, "
           f"{s['tok_per_s']:.1f} tok/s ({s['tokens']} tokens, "
           f"{s['host_syncs']} host syncs / {s['requests']} requests, "
-          f"{s['chunks']} chunks{spec}{prefix}) on {dev}")
+          f"{s['chunks']} chunks{spec}{prefix}{disagg}) on {dev}")
     return engine, results
 
 

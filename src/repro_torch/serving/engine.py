@@ -66,6 +66,10 @@ scheduling is the reference's:
   the chunk loop starts at s0. New pages take their checkpoints chunk by
   chunk, copies of the inter-chunk state the loop holds. Speculation is
   refused (no rewind un-writes a dense state).
+* ``KV page hand-off`` (``export_kv_pages``/``import_kv_pages``, with
+  the prefix cache on): a prompt's cached full pages copied to host
+  memory and into another engine's pool and radix tree, bit for bit,
+  where its ordinary warm admission reuses them (``serving/disagg.py``).
 * ``SLO admission``: ``priority`` strata, then the earliest TTFT
   deadline, then submission order drain the queue (uniform priority and
   no deadlines is FIFO); ``max_queue`` bounds the queue
@@ -179,6 +183,25 @@ def _draw_seed(seed: int, draw: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return (z ^ (z >> 31)) >> 1             # torch seeds below 2**63
+
+
+@dataclasses.dataclass
+class KVPages:
+    """Host-memory snapshot of a prompt's full KV pages, the hand-off unit
+    of disaggregated serving (``serving/disagg.py``): bit-for-bit copies
+    of page-pool rows (all layers, int8 codes and f32 scales included) and
+    the token ids they cover, so the receiving engine can key them in its
+    own radix tree. ``payload`` holds CPU tensors in the pool's dtypes
+    with the page axis at dim 1, e.g. ``k`` (L, n_pages, page, KH, Dh),
+    page q covering positions [q*page, (q+1)*page). (The reference holds
+    numpy arrays; numpy has no bfloat16.)"""
+    page: int
+    tokens: List[int]
+    payload: Dict[str, torch.Tensor]
+
+    @property
+    def n_pages(self) -> int:
+        return len(self.tokens) // self.page
 
 
 class EngineSaturated(RuntimeError):
@@ -912,6 +935,64 @@ class Engine:
         if self._prefix is None:
             return 0
         return self._prefix.match_len(list(tokens))
+
+    # -- cross-engine KV hand-off (disaggregated serving) --------------------
+    def export_kv_pages(self, tokens: List[int]) -> KVPages:
+        """Copy the full pages this engine has cached for ``tokens`` to host
+        memory, bit for bit: the chain of whole pages from position 0 to
+        the first miss (a prompt this engine just prefilled with the cache
+        on exports every full page of itself). The sending half of the
+        hand-off; ``import_kv_pages`` is the receiving half."""
+        if self._prefix is None:
+            raise RuntimeError(
+                "export_kv_pages needs ServeConfig.prefix_cache=True: the "
+                "page pool is the export source")
+        tokens = list(tokens)
+        chain = self._prefix.page_chain(tokens)
+        if not chain:
+            return KVPages(page=self._page, tokens=[], payload={})
+        self._ensure_pool()
+        idx = torch.as_tensor([i for i, _ in chain], device=self.device)
+        return KVPages(page=self._page,
+                       tokens=tokens[:len(chain) * self._page],
+                       payload={k: v[:, idx].cpu()
+                                for k, v in self._pool.items()})
+
+    def import_kv_pages(self, kv: KVPages) -> int:
+        """Adopt another engine's exported pages: key their token chain in
+        this engine's radix tree and copy the payloads into the matching
+        pool rows. Returns the number of pages imported. A chain prefix
+        already resident is deduplicated (same weights, same tokens, same
+        bits), a saturated pool drops the tail as a local insert does
+        (counted in ``prefix_insert_drops``), and a chain longer than the
+        ring imports nothing (the local insert skips such prompts). A
+        request with that prompt then hits the prefix cache as if this
+        engine had prefilled it."""
+        if self._prefix is None:
+            raise RuntimeError(
+                "import_kv_pages needs ServeConfig.prefix_cache=True: the "
+                "page pool is the import destination")
+        if kv.page != self._page:
+            raise ValueError(
+                f"page geometry mismatch: exported pages hold {kv.page} "
+                f"positions, this engine's pool holds {self._page}")
+        n = kv.n_pages
+        if n == 0 or len(kv.tokens) > self._T:
+            return 0
+        drops0 = self._prefix.insert_drops
+        new = self._prefix.insert(list(kv.tokens[:n * self._page]))
+        self.stats["prefix_insert_drops"] += (self._prefix.insert_drops
+                                              - drops0)
+        if not new:
+            return 0
+        self._ensure_pool()
+        src = torch.as_tensor([p0 // self._page for _, p0 in new])
+        dst = torch.as_tensor([i for i, _ in new], device=self.device)
+        for k, pool in self._pool.items():
+            if k in kv.payload:
+                pool[:, dst] = kv.payload[k][:, src].to(self.device,
+                                                        pool.dtype)
+        return len(new)
 
     # -- admission -----------------------------------------------------------
     def _admit_group(self, slots: List[int], reqs: List[Request]) -> None:

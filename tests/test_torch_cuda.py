@@ -556,3 +556,33 @@ def test_moe_block_on_the_card_equals_the_cpu(cuda_device, cf):
     for b in range(3):
         yb, _ = PM.moe_block(x[b:b + 1].to(cuda_device), lg, cfg)
         assert torch.equal(yb[0], y[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv8", [False, True])
+def test_kv_page_export_import_on_the_card(cuda_device, kv8):
+    """The disaggregation hand-off on the card: a prompt's pages exported
+    from one engine, imported into another and exported again are the
+    same bytes (int8 codes and f32 scales too), and the importer serves
+    the exporter's tokens from them."""
+    from repro_torch.serving.engine import Engine, ServeConfig
+    cfg = get_arch("tinyllama-1.1b", reduced=True).replace(
+        kv_cache_quant=kv8)
+    params = PT.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                            device=cuda_device)
+    scfg = ServeConfig(max_new_tokens=5, cache_len=64, decode_chunk=5,
+                       max_slots=2, prefill_bucket=4, prefill_chunk=16,
+                       prefix_page=8, prefix_cache=True)
+    src = Engine(cfg, params, scfg, device=cuda_device)
+    dst = Engine(cfg, params, scfg, device=cuda_device)
+    P = [int(t) for t in np.random.default_rng(6).integers(
+        0, cfg.vocab_size, 21)]
+    want = src.generate([P])
+    kv = src.export_kv_pages(P)
+    assert kv.n_pages == 2 and len(kv.payload) == (4 if kv8 else 2)
+    assert all(v.device.type == "cpu" for v in kv.payload.values())
+    assert dst.import_kv_pages(kv) == 2
+    back = dst.export_kv_pages(P)
+    for k, v in kv.payload.items():
+        assert _bytes_equal(back.payload[k], v), k
+    assert dst.generate([P]) == want and dst.stats["prefix_hits"] == 1

@@ -53,7 +53,9 @@ def test_engine_imports_without_jax():
             "repro_torch.launch.policy_search, repro_torch.core.calibrate, "
             "repro_torch.core.quality, repro_torch.bridge, "
             "repro_torch.core.isa, repro_torch.launch.quickstart, "
-            "repro_torch.benchmarks.shapes; print('ok')")
+            "repro_torch.benchmarks.shapes, repro_torch.serving.router, "
+            "repro_torch.serving.disagg, repro_torch.serving.frontend; "
+            "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -84,3 +86,5 @@ def test_policy_entry_points_raise_where_no_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--policy",
                     "auto"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--disagg"])

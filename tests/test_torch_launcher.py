@@ -5,8 +5,11 @@
 serving: ``--temperature``, ``--eos-id``, ``--seed``, ``--stream`` and
 ``--no-quant``; and for speculative decoding, the prefix cache and SLO
 admission: ``--drafter``, ``--draft-*``, ``--prefix-*``,
-``--shared-prefix``, ``--max-queue`` and ``--preempt``. ``main`` returns
-the engine after its run and the ``{request id: tokens}`` it printed.
+``--shared-prefix``, ``--max-queue`` and ``--preempt``; and for
+disaggregated serving and the HTTP front end: ``--disagg``,
+``--prefill-workers``, ``--decode-workers``, ``--http``, ``--host``,
+``--port`` and ``--request-timeout``. ``main`` returns the engine after
+its run and the ``{request id: tokens}`` it printed.
 """
 import re
 
@@ -17,6 +20,8 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.kernels import bfp_matmul as PB
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve
+from repro_torch.serving import frontend
+from repro_torch.serving.disagg import DisaggEngine
 
 torch.set_num_threads(2)
 
@@ -143,3 +148,54 @@ def test_moe_arch_serves_under_the_default_policy(calls, capsys):
     assert "{'q3_k': 8, 'q2_k': 5} matmuls" in capsys.readouterr().out
     assert calls["matmuls"] > 0
     assert len(res) == 3 and all(len(t) == 6 for t in res.values())
+
+
+DISAGG = ["--disagg", "--prefill-workers", "2", "--decode-workers", "2",
+          "--prefix-page", "8", "--shared-prefix", "20", "--prompt-len",
+          "10"]
+
+
+def test_disagg_flags_serve_the_monolithic_tokens(capsys):
+    """``--disagg`` serves through the prefill and decode tiers with the
+    worker counts asked for, gives the monolithic launcher's tokens, and
+    the stats line carries the router's counts."""
+    _, mono = serve.main(BASE + DISAGG[5:])
+    capsys.readouterr()
+    eng, res = serve.main(BASE + DISAGG)
+    assert isinstance(eng, DisaggEngine)
+    assert (len(eng.prefill_engines), len(eng.decode_engines)) == (2, 2)
+    assert eng.device.type == "cpu"
+    assert res == mono
+    assert eng.stats["router"]["migrated_pages_total"] > 0
+    assert re.search(r"router: \d+ pages migrated, prefill hit rates "
+                     r"\[.*\], \d+ direct-to-decode, peak depths "
+                     r"P\[\d+, \d+\]/D\[\d+, \d+\]", capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_disagg_refuses_the_recurrent_archs(arch):
+    with pytest.raises(ValueError, match="KV-ring family"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--tokens", "2", "--disagg"])
+
+
+@pytest.mark.parametrize("disagg", [False, True])
+def test_http_flags_reach_the_front_end(monkeypatch, disagg):
+    """``--http`` hands the engine (monolithic or disaggregated) to
+    ``serve_forever`` with ``--host``, ``--port``, ``--request-timeout``,
+    the arch as the model name and ``--tokens`` as the default budget,
+    instead of draining the synthetic queue."""
+    seen = {}
+
+    def fake_serve_forever(engine, fcfg):
+        seen.update(engine=engine, fcfg=fcfg)
+    monkeypatch.setattr(frontend, "serve_forever", fake_serve_forever)
+    eng, res = serve.main(BASE + ["--http", "--host", "0.0.0.0", "--port",
+                                  "0", "--request-timeout", "7.5"]
+                          + (DISAGG[:1] if disagg else []))
+    assert seen["engine"] is eng and res == {}
+    assert isinstance(eng, DisaggEngine if disagg else serve.Engine)
+    f = seen["fcfg"]
+    assert (f.host, f.port, f.request_timeout_s, f.model_name,
+            f.max_tokens_default) == ("0.0.0.0", 0, 7.5, "llama3.2-1b", 6)
+    assert eng.stats["admissions"] == 0         # nothing was drained
