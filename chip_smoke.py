@@ -247,6 +247,39 @@ Phases, each of which exits nonzero on failure:
    slot held by a gate in the running request's decode chunk) a third
    request gets 429 ``queue_full``. Client TTFT p50/p99 is printed.
    Phases 27-29 each print their wall time.
+30. training, slice 10 (path 23): ``run_training`` on full-width
+   tinyllama-1.1b (f32 master weights, bf16 compute, remat on) for 20
+   steps of the synthetic pipeline at global batch 8 x 256 in 2
+   microbatches: every loss finite, the mean of the last 5 below the mean
+   of the first 5, and no kernel of the port launched (training runs
+   float weights and the naive attention, as the reference's). Step
+   p50/p99, tokens/s, the peak ``max_memory_allocated``, the step's
+   operations beside their bound, and one more step under
+   ``torch.profiler`` (its kernels' device time against its span between
+   CUDA events: the device-idle share) are printed.
+31. training, card against CPU: one ``make_train_step`` step (2
+   microbatches) of reduced tinyllama from one state, on the card and on
+   the CPU, in f32 compute (loss, grad norm and the update at
+   ``TOL_TRAIN_*_F32``) and in bf16 (``TOL_TRAIN_BF16``, and the update
+   within twice the CPU's own bf16 update against its f32 one); no
+   parameter more than 2 x lr apart.
+32. resume and preemption: tinyllama at full width cut to 2 layers (a
+   2.6 GB checkpoint in a temporary directory): 6 steps straight against
+   3 + restart + 3 end within ``TOL_RESUME`` (the largest parameter
+   difference printed); then ``python -m repro_torch.launch.train`` in a
+   subprocess gets SIGTERM after its step-10 line, must say it was
+   preempted and leave a checkpoint, and a resumed run finishes the
+   remaining steps.
+33. the other families: granite-moe-3b-a800m (4 of 32 layers; its aux
+   loss finite and above 0), mamba2-2.7b (8 of 64) and zamba2-1.2b (6 of
+   38: one application of the shared block), full width, 3 steps each at
+   4 x 256: finite losses, the peak ``max_memory_allocated``.
+   olmoe-1b-7b's train state at full depth is printed (110.7 GB of f32
+   params, grads, m and v: it does not fit one card; its width is not
+   cut).
+34. training under ``attn_impl="fused"`` raises a NotImplementedError
+   that names ``naive`` and ``blockwise`` (the kernel has no backward).
+   Phases 30, 32 and 33 each print their wall time.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -255,6 +288,9 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
+import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -396,6 +432,29 @@ TOL_SSM = 2.0 ** -6     # layer 0's mamba2_forward, card vs CPU, bf16 out:
 # 11's queue plus one sub-page prompt (direct to decode) on tinyllama;
 # path 21 the first requests of that queue on olmoe (fused, 512 MiB pools)
 N_MOE_DISAGG, MOE_DISAGG_TOKENS = 4, 8
+# slice 10: training (path 23). Full-width tinyllama-1.1b, f32 master
+# weights, bf16 compute, remat on, global batch 8 x 256 in 2 microbatches
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_RUN = dict(steps=20, global_batch=8, seq_len=256, microbatches=2,
+                 seed=0)
+TRAIN_OPT = dict(lr=5e-4, warmup_steps=4)
+# resume and preemption: full width, depth cut to 2 layers (a 2.6 GB
+# checkpoint of f32 params, m and v)
+RESUME_LAYERS, RESUME_STEPS = 2, 6
+PREEMPT_STEPS, PREEMPT_AT = 40, 10      # SIGTERM after the step-10 log line
+TOL_RESUME = 1e-4       # the reference's own bound (test_checkpoint.py)
+# card against CPU, one train step of reduced tinyllama from one state:
+# f32 compute holds f32 sums in another order; bf16 compute the update
+# within twice the CPU's own bf16 update against its f32 one; no element
+# more than 2 x lr apart (Adam's first step is lr x g / (|g| + eps): an
+# element whose gradient is near 0 can step the other way)
+TOL_TRAIN_LOSS_F32, TOL_TRAIN_GNORM_F32, TOL_TRAIN_UPD_F32 = 1e-5, 1e-4, 1e-3
+TOL_TRAIN_BF16 = 2e-2
+# the other families, full width, depth cut for time and memory; a few
+# steps each at 4 x 256
+TRAIN_FAMILIES = (("granite-moe-3b-a800m", 4), ("mamba2-2.7b", 8),
+                  ("zamba2-1.2b", 6))
+FAMILY_RUN = dict(steps=3, global_batch=4, seq_len=256)
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -2685,6 +2744,410 @@ def phase_slice6(torch, np, cfg, T, quantize_params, variant_counts,
     return launches, attn, out
 
 
+def _kernel_launches(PB, PA, PK) -> int:
+    return (sum(PB.launches.values()) + PA.launches["prefill_attn"]
+            + PK.launches["q8k_quantize"])
+
+
+def _reset_kernels(PB, PA, PK) -> None:
+    PB.reset_launches()
+    PA.reset_launches()
+    PK.reset_launches()
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def _train_step_profile(torch, step_fn, state, batch):
+    """One train step under ``torch.profiler``, with CUDA events around it:
+    (span ms between the events, device ms of its kernels and copies,
+    their count, the 6 names of most device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    return (start.elapsed_time(end), busy, sum(e.count for e in rows),
+            [(e.key[:60], e.count, round(dev_us(e) / 1e3, 3))
+             for e in rows[:6]])
+
+
+def _train_flops(cfg, n_layer_params, n_head_params, tokens, remat):
+    """Matmul and attention operations of one train step: forward 2, backward
+    4 a parameter a token, a layer recomputed under remat, and the naive
+    attention's full S x S scores and values (2 products, 2 x B x S^2 x
+    H x Dh each) a layer, forward, backward (twice) and recompute."""
+    B, S = tokens
+    n = B * S
+    mm = (6 * (n_layer_params + n_head_params) * n
+          + (2 * n_layer_params * n if remat else 0))
+    attn = (2 * 2 * B * S * S * cfg.n_heads * cfg.d_head * cfg.n_layers
+            * (4 if remat else 3))
+    return mm + attn
+
+
+def phase_train_full(torch, np, cfg, S, loop, AdamWConfig, DP, PB, PA, PK,
+                     dev):
+    """Phase 30 (path 23): ``run_training`` at full width and depth."""
+    t_phase = time.perf_counter()
+    opt = AdamWConfig(total_steps=TRAIN_RUN["steps"], **TRAIN_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernels(PB, PA, PK)
+    res = loop.run_training(
+        cfg, opt=opt, log_every=5, device=dev,
+        log_fn=lambda m: print(f"[train] {m}", flush=True), **TRAIN_RUN)
+    launched = _kernel_launches(PB, PA, PK)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = res["losses"]
+    check(len(losses) == TRAIN_RUN["steps"]
+          and all(np.isfinite(losses)), f"training losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[train] {cfg.name} losses {[round(x, 4) for x in losses]}; "
+          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}",
+          flush=True)
+    check(last < first, f"training loss did not fall: {first} -> {last}")
+    check(launched == 0, f"training launched {launched} kernels of the "
+          "port: none is on this path")
+    params = res["state"]["params"]
+    n_all = _n_params(params)
+    n_head = params["lm_head"].numel()
+    n_layers = _n_params(params["layers"])
+    t = res["timing"]
+    B, Sq = TRAIN_RUN["global_batch"], TRAIN_RUN["seq_len"]
+    flops = _train_flops(cfg, n_layers, n_head, (B, Sq), cfg.remat)
+    # one more step, profiled, on the run's next batch
+    step_fn = S.make_train_step(cfg, opt,
+                                microbatches=TRAIN_RUN["microbatches"])
+    data = DP.DataPipeline(DP.DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=Sq, global_batch=B,
+                                         seed=TRAIN_RUN["seed"]))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(TRAIN_RUN["steps"]).items()}
+    span, busy, n_kernels, top = _train_step_profile(
+        torch, step_fn, res["state"], batch)
+    out = {"params": n_all, "steps": len(losses),
+           "loss_first5": first, "loss_last5": last,
+           "step_p50_s": t["p50"], "step_p99_s": t["p99"],
+           "tokens_per_s": B * Sq / t["p50"], "peak_allocated_gb": peak,
+           "flops_per_step": flops,
+           "bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+           "profiled_step_span_ms": span, "profiled_device_ms": busy,
+           # None where the profiler shows no device time
+           "device_idle_share": max(0.0, 1 - busy / span) if busy else None,
+           "profiled_launches": n_kernels, "top_kernels": top,
+           "kernel_launches": launched}
+    print(f"[train] {cfg.name} {n_all:,} params, {len(losses)} steps of "
+          f"{B} x {Sq} ({TRAIN_RUN['microbatches']} microbatches, remat "
+          f"{cfg.remat}): step p50 {t['p50'] * 1e3:.1f} ms p99 "
+          f"{t['p99'] * 1e3:.1f} ms, {out['tokens_per_s']:.1f} tok/s, peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB; "
+          f"{flops / 1e12:.2f} TFLOP a step (bound {out['bound_ms']:.2f} "
+          f"ms at 989 TFLOP/s); a profiled step spans {span:.1f} ms, its "
+          f"{n_kernels} kernels and copies {busy:.1f} ms of device time "
+          f"(idle share {out['device_idle_share']}); top {top}; "
+          f"kernels of the port launched: {launched}", flush=True)
+    print(f"[train] phase 30 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return out
+
+
+def _to(tree, where):
+    if isinstance(tree, dict):
+        return {k: _to(v, where) for k, v in tree.items()}
+    return tree.to(where)
+
+
+def _update_err(new, ref, p0, leaves) -> float:
+    """The largest leaf's norm of (new - ref) over its norm of (ref - p0):
+    how far two updates from p0 are apart, relative to the update."""
+    return max(float((a.double() - b.double()).norm()
+                     / (b.double() - c.double()).norm().clamp_min(1e-30))
+               for a, b, c in zip(leaves(new), leaves(ref), leaves(p0)))
+
+
+def phase_train_card_vs_cpu(torch, np, get_arch, S, AdamWConfig, leaves,
+                            dev):
+    """Phase 31: one make_train_step step of reduced tinyllama from one
+    state, on the card against the CPU, in f32 and in bf16 compute."""
+    cfg = get_arch(TRAIN_ARCH, reduced=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    state = S.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+        for k in ("tokens", "labels")}
+
+    def one(c, where):
+        new, m = S.make_train_step(c, opt, microbatches=2)(
+            _to(state, where), {k: v.to(where) for k, v in batch.items()})
+        return _to(new["params"], "cpu"), {k: float(v) for k, v in m.items()}
+    out, p0 = {}, state["params"]
+    cpu32 = None
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        card, mc = one(c, dev)
+        cpu, mp = one(c, "cpu")
+        rel = {k: abs(mc[k] - mp[k]) / abs(mp[k])
+               for k in ("loss", "grad_norm")}
+        upd = _update_err(card, cpu, p0, leaves)
+        worst = max(float((a - b).abs().max())
+                    for a, b in zip(leaves(card), leaves(cpu)))
+        check(worst <= 2 * mc["lr"], f"train step {dtype}: a parameter "
+              f"{worst} apart on the card, past 2 x lr")
+        if dtype == "float32":
+            check(rel["loss"] <= TOL_TRAIN_LOSS_F32
+                  and rel["grad_norm"] <= TOL_TRAIN_GNORM_F32
+                  and upd <= TOL_TRAIN_UPD_F32,
+                  f"train step f32 card vs CPU: {rel}, update {upd}")
+            cpu32 = cpu
+            noise = None
+        else:
+            noise = _update_err(cpu, cpu32, p0, leaves)
+            check(max(rel.values()) <= TOL_TRAIN_BF16 and upd <= 2 * noise,
+                  f"train step bf16 card vs CPU: {rel}, update {upd}, the "
+                  f"CPU's bf16 against f32 {noise}")
+        out[dtype] = {"loss_rel": rel["loss"],
+                      "grad_norm_rel": rel["grad_norm"],
+                      "update_rel": upd, "max_abs_param": worst,
+                      "cpu_bf16_vs_f32_update": noise,
+                      "loss": mc["loss"]}
+        print(f"[train] card vs CPU, reduced {cfg.name}, {dtype} compute: "
+              f"loss {mc['loss']:.6f} vs {mp['loss']:.6f} (rel "
+              f"{rel['loss']:.2e}), grad norm rel {rel['grad_norm']:.2e}, "
+              f"update rel {upd:.2e}"
+              + (f" (CPU bf16 vs f32 {noise:.2e})" if noise else "")
+              + f", largest parameter difference {worst:.2e}", flush=True)
+    return out
+
+
+def phase_train_resume(torch, np, cfg, S, loop, AdamWConfig, Checkpointer,
+                       leaves, root, dev):
+    """Phase 32: 6 steps straight against 3 + restart + 3 at full width,
+    2 layers; then the launcher in a subprocess, preempted by SIGTERM, and
+    the rest of its run resumed."""
+    t_phase = time.perf_counter()
+    cfg2 = cfg.replace(n_layers=RESUME_LAYERS)
+    opt = AdamWConfig(total_steps=RESUME_STEPS, **TRAIN_OPT)
+    kw = dict(global_batch=TRAIN_RUN["global_batch"],
+              seq_len=TRAIN_RUN["seq_len"],
+              microbatches=TRAIN_RUN["microbatches"], opt=opt, seed=3,
+              log_fn=lambda *_: None, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res_a = loop.run_training(cfg2, steps=RESUME_STEPS, **kw)
+        d1 = Path(tmp) / "resume"
+        half = RESUME_STEPS // 2
+        t0 = time.perf_counter()
+        loop.run_training(cfg2, steps=half, ckpt_dir=str(d1),
+                          ckpt_every=half, **kw)
+        t_save = time.perf_counter() - t0
+        res_b = loop.run_training(cfg2, steps=RESUME_STEPS,
+                                  ckpt_dir=str(d1), ckpt_every=half, **kw)
+        ck_bytes = sum(f.stat().st_size
+                       for f in (d1 / f"step_{half}").iterdir())
+        check(len(res_b["losses"]) == RESUME_STEPS - half,
+              f"resume ran {len(res_b['losses'])} steps")
+        dl = abs(res_a["losses"][-1] - res_b["losses"][-1])
+        dp = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(leaves(res_a["state"]["params"]),
+                                 leaves(res_b["state"]["params"])))
+        print(f"[train] resume at {RESUME_LAYERS} layers: {RESUME_STEPS} "
+              f"steps straight end at loss {res_a['losses'][-1]:.6f}, "
+              f"{half} + restart + {half} at {res_b['losses'][-1]:.6f} "
+              f"(|diff| {dl:.2e}, bound {TOL_RESUME}); largest parameter "
+              f"difference {dp:.3e}; checkpoint {ck_bytes / 1e9:.2f} GB, "
+              f"the {half}-step run with its two saves took {t_save:.1f}s",
+              flush=True)
+        check(dl <= TOL_RESUME, f"resumed loss {dl} apart")
+        out.update(loss_diff=dl, max_param_diff=dp,
+                   checkpoint_gb=ck_bytes / 1e9)
+        del res_a, res_b
+        shutil.rmtree(d1)
+
+        # the launcher, preempted
+        ckdir = Path(tmp) / "preempt"
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--device", str(dev), "--layers",
+               str(RESUME_LAYERS), "--steps",
+               str(PREEMPT_STEPS), "--batch", str(kw["global_batch"]),
+               "--seq", str(kw["seq_len"]), "--microbatches",
+               str(kw["microbatches"]), "--lr", str(TRAIN_OPT["lr"]),
+               "--warmup", str(TRAIN_OPT["warmup_steps"]), "--ckpt-dir",
+               str(ckdir), "--ckpt-every", "1000", "--seed", "3"]
+        proc = subprocess.Popen(cmd, cwd=str(root), env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines = []
+        try:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 300:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line.rstrip())
+                if line.startswith(f"step {PREEMPT_AT:5d}"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines += rest.splitlines()
+        for ln in lines:
+            print(f"[train] launcher: {ln}", flush=True)
+        check(proc.returncode == 0, f"the launcher exited {proc.returncode}")
+        check(any(ln.startswith("[preempt] SIGTERM at step")
+                  for ln in lines), "the launcher did not say it was "
+              "preempted")
+        steps = Checkpointer(str(ckdir)).all_steps()
+        check(bool(steps) and steps[-1] < PREEMPT_STEPS,
+              f"preemption left checkpoints {steps}")
+        res = loop.run_training(cfg2, steps=PREEMPT_STEPS,
+                                ckpt_dir=str(ckdir), ckpt_every=1000,
+                                **dict(kw, opt=AdamWConfig(
+                                    total_steps=PREEMPT_STEPS, **TRAIN_OPT)))
+        check(len(res["losses"]) == PREEMPT_STEPS - steps[-1]
+              and all(np.isfinite(res["losses"])),
+              f"the resumed run took {len(res['losses'])} steps")
+        print(f"[train] preempted after step {steps[-1] - 1}: checkpoint "
+              f"step_{steps[-1]}; the resumed run finished the remaining "
+              f"{len(res['losses'])} steps, final loss "
+              f"{res['losses'][-1]:.4f}", flush=True)
+        out.update(preempted_at=steps[-1],
+                   resumed_steps=len(res["losses"]))
+        del res
+    torch.cuda.empty_cache()
+    print(f"[train] phase 32 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return out
+
+
+def phase_train_families(torch, np, get_arch, S, AdamWConfig, DP, dev):
+    """Phase 33: a few train steps of the MoE, ssm and hybrid families at
+    full width, depth cut; olmoe-1b-7b's state size at full depth."""
+    t_phase = time.perf_counter()
+    out = {}
+    opt = AdamWConfig(total_steps=FAMILY_RUN["steps"], **TRAIN_OPT)
+    for arch, depth in TRAIN_FAMILIES:
+        cfg = get_arch(arch).replace(n_layers=depth)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = S.init_train_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
+        step_fn = S.make_train_step(cfg, opt)
+        data = DP.DataPipeline(DP.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=FAMILY_RUN["seq_len"],
+            global_batch=FAMILY_RUN["global_batch"]))
+        losses, auxes, times = [], [], []
+        for i in range(FAMILY_RUN["steps"]):
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch(i).items()}
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = _n_params(state["params"])
+        check(all(np.isfinite(losses)) and all(np.isfinite(auxes)),
+              f"{arch}: losses {losses}, aux {auxes}")
+        if cfg.family == "moe":
+            check(min(auxes) > 0, f"{arch}: aux {auxes}")
+        out[arch] = {"layers": depth, "params": n, "losses": losses,
+                     "aux": auxes, "step_s": times, "peak_allocated_gb": peak}
+        print(f"[train] {arch} at full width, {depth} of "
+              f"{get_arch(arch).n_layers} layers ({n:,} params), "
+              f"{FAMILY_RUN['global_batch']} x {FAMILY_RUN['seq_len']}: "
+              f"losses {[round(x, 4) for x in losses]}, aux "
+              f"{[round(x, 4) for x in auxes]}, step s "
+              f"{[round(x, 3) for x in times]}, peak "
+              f"torch.cuda.max_memory_allocated {peak:.2f} GB", flush=True)
+        del state, step_fn
+    # olmoe-1b-7b at full depth: its f32 params, grads, m and v
+    cfg = get_arch("olmoe-1b-7b")
+    counts = []
+    for depth in (1, 2):
+        p = S.T.init_params(cfg.replace(n_layers=depth),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        counts.append(_n_params(p))
+        del p
+    n = counts[0] + (cfg.n_layers - 1) * (counts[1] - counts[0])
+    out["olmoe-1b-7b"] = {"params": n, "train_state_gb": 16 * n / 1e9}
+    print(f"[train] olmoe-1b-7b not trained: {n:,} params x 16 B of f32 "
+          f"params, grads, m and v = {16 * n / 1e9:.1f} GB at full depth, "
+          f"past one card's 80 GB (its width is not cut)", flush=True)
+    torch.cuda.empty_cache()
+    print(f"[train] phase 33 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return out
+
+
+def phase_train_fused(torch, np, get_arch, S, AdamWConfig, dev):
+    """Phase 34: training under ``attn_impl="fused"`` raises."""
+    cfg = get_arch(TRAIN_ARCH).replace(n_layers=1, attn_impl="fused")
+    opt = AdamWConfig()
+    state = S.init_train_state(cfg, opt,
+                               torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    toks = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    try:
+        S.make_train_step(cfg, opt)(state, {"tokens": toks, "labels": toks})
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        fail("training under attn_impl='fused' did not raise")
+    check("naive" in msg and "blockwise" in msg, f"unclear refusal: {msg}")
+    print(f"[train] fused attention refused: {msg}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return msg
+
+
+def phase_slice10(torch, np, get_arch, dev, root, PB, PA, PK):
+    """Phases 30-34: training (path 23)."""
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.data import pipeline as DP
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.training import loop
+    from repro_torch.training import steps as S
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    out = {"full": phase_train_full(torch, np, cfg, S, loop, AdamWConfig,
+                                    DP, PB, PA, PK, dev)}
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = phase_train_card_vs_cpu(torch, np, get_arch, S,
+                                                 AdamWConfig, tree_leaves,
+                                                 dev)
+    out["resume"] = phase_train_resume(torch, np, cfg, S, loop, AdamWConfig,
+                                       Checkpointer, tree_leaves, root, dev)
+    out["families"] = phase_train_families(torch, np, get_arch, S,
+                                           AdamWConfig, DP, dev)
+    out["fused_refusal"] = phase_train_fused(torch, np, get_arch, S,
+                                             AdamWConfig, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[train] phases 30-34 took {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -2842,6 +3305,9 @@ def main() -> None:
         torch, np, get_arch, T, M2, quantize_params, variant_counts,
         get_policy, Engine, ServeConfig, PB, PA, Q, dev)
 
+    # slice 10: training at full width (path 23)
+    slice10 = phase_slice10(torch, np, get_arch, dev, root, PB, PA, PK)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2935,6 +3401,7 @@ def main() -> None:
                 f"{MOE_FUSED}_disagg": slice7["disagg"]}
     print(f"[slice9] summary: {json.dumps(summary9)}", flush=True)
     print(f"[slice8] summary: {json.dumps(slice8)}", flush=True)
+    print(f"[slice10] summary: {json.dumps(slice10)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

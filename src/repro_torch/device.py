@@ -6,9 +6,10 @@ tests) passes ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -35,3 +36,11 @@ def tree_device(tree) -> Optional[torch.device]:
     if isinstance(data, dict):
         return tree_device(data)
     return None
+
+
+def processes() -> Tuple[int, int]:
+    """(this process's rank, the number of processes): from
+    ``torch.distributed`` where it is initialized, else (0, 1)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

@@ -112,10 +112,12 @@ def _ssd_chunk_scan(x, dt, A, Bm, Cm, state0, chunk: int):
         xc, dtc = x[:, c0:c0 + Q], dt[:, c0:c0 + Q]
         Bc, Cc = Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
         acs = torch.cumsum(dtc * Af, dim=1)                 # (B, Q, H)
-        # exp of a positive difference above the diagonal is +inf: mask it
-        # before any product (inf * 0 is NaN)
-        decay = torch.where(tri, torch.exp(acs[:, :, None] - acs[:, None]),
-                            torch.zeros((), dtype=f32, device=x.device))
+        # exp of a positive difference above the diagonal may be +inf, and
+        # inf * 0 is NaN in a product and in exp's backward: mask the
+        # exponent to -inf, whose exp is the same 0, and whose gradient is 0
+        decay = torch.exp(torch.where(
+            tri, acs[:, :, None] - acs[:, None],
+            torch.full((), -torch.inf, dtype=f32, device=x.device)))
         u = dtc[..., None] * xc                             # (B, Q, H, P)
         v = (dtc * torch.exp(acs[:, -1:] - acs))[..., None] * xc
         e_acs = torch.exp(acs)

@@ -15,16 +15,17 @@ that axis too.
 The reference's layer ``scan`` is a Python loop over layers that indexes
 the stacked tensors.
 
-``forward_seq`` is the cache-free full-sequence forward that calibration
-and the quality metrics run. Caches: ``k``/``v`` of shape
-``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)`` int32 with -1 for an empty
-slot, as in the reference; under ``cfg.kv_cache_quant`` ``k``/``v`` hold
-int8 codes and ``k_scale``/``v_scale`` ``(L, B, T, KH)`` their f32
-per-row scales. A recurrent cache holds ``conv`` ``(L, B, W-1, C)`` in
-the cache dtype and ``state`` ``(L, B, H, P, N)`` in f32; hybrid adds
-one bf16 ring a shared-block application, ``k``/``v`` ``(napp, B, T,
-KH, 2d/H)``, and ``pos``. Where the reference returns an updated copy,
-``decode_step``, ``prefill_chunk``, ``verify_chunk``, ``verify_scan``,
+``forward_seq`` is the cache-free full-sequence forward that
+calibration, the quality metrics and training (``training/steps.py``)
+run. Caches: ``k``/``v`` of shape ``(L, B, T, KH, Dh)`` and ``pos``
+``(B, T)`` int32 with -1 for an empty slot, as in the reference; under
+``cfg.kv_cache_quant`` ``k``/``v`` hold int8 codes and
+``k_scale``/``v_scale`` ``(L, B, T, KH)`` their f32 per-row scales. A
+recurrent cache holds ``conv`` ``(L, B, W-1, C)`` in the cache dtype and
+``state`` ``(L, B, H, P, N)`` in f32; hybrid adds one bf16 ring a
+shared-block application, ``k``/``v`` ``(napp, B, T, KH, 2d/H)``, and
+``pos``. Where the reference returns an updated copy, ``decode_step``,
+``prefill_chunk``, ``verify_chunk``, ``verify_scan``,
 ``cache_set_slots``, ``cache_scatter_pages``, ``cache_ring_rewind``,
 ``cache_scatter_checkpoints`` and ``cache_insert_checkpoints`` update
 the tensors in place (saving a copy of the whole cache per step) and
@@ -43,6 +44,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import calibrate as CAL
@@ -203,13 +205,14 @@ def _rope(cfg: ModelConfig, positions):
 
 
 def _mlp(m_in, lp, cfg: ModelConfig, impl):
-    """The block's MLP: the MoE layer (its aux loss dropped, as the
-    reference's decode and prefill drop it), GELU or SwiGLU."""
+    """The block's MLP and its MoE aux loss (None outside MoE; decode and
+    prefill drop it, as the reference's do): the MoE layer, GELU or
+    SwiGLU."""
     if cfg.family == "moe":
-        return MOE.moe_block(m_in, lp["moe"], cfg)[0]
+        return MOE.moe_block(m_in, lp["moe"], cfg)
     if cfg.act == "gelu":
-        return L.gelu_mlp(m_in, lp["mlp"], impl=impl)
-    return L.swiglu_mlp(m_in, lp["mlp"], impl=impl)
+        return L.gelu_mlp(m_in, lp["mlp"], impl=impl), None
+    return L.swiglu_mlp(m_in, lp["mlp"], impl=impl), None
 
 
 def _logits(params, cfg: ModelConfig, h, impl="auto"):
@@ -554,7 +557,7 @@ def _attn_layer_decode(h, lp, ring, slot_pos, position, slot, cfg,
                            softcap=cfg.attn_logit_softcap)
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-    return h + _mlp(m_in, lp, cfg, impl)
+    return h + _mlp(m_in, lp, cfg, impl)[0]
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
@@ -708,7 +711,7 @@ def _masked_chunk(params, cfg: ModelConfig, cache, tokens, positions, valid,
         _ring_store(ring, store, bidx, slot, valid)
         h = h + _attn_out(o, lp, cfg, impl)
         m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-        h = h + _mlp(m_in, lp, cfg, impl)
+        h = h + _mlp(m_in, lp, cfg, impl)[0]
     cache["pos"][bidx, slot] = torch.where(
         valid, positions.to(torch.int32), old_pos[bidx, slot])
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
@@ -732,6 +735,13 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
                                  window=cfg.sliding_window,
                                  softcap=cfg.attn_logit_softcap)
     if impl == "fused":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "attn_impl='fused' has no backward pass: the CUDA prefill "
+                "attention kernel cannot be differentiated (nor can the "
+                "reference's Pallas kernel); train with attn_impl='naive' "
+                "or 'blockwise'")
         B, S2 = q.shape[:2]
         pos = torch.arange(S2, dtype=torch.int32, device=q.device)
         pos = pos[None].expand(B, S2).contiguous()
@@ -749,39 +759,77 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
 
 
 def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
+    """One block over the whole sequence: (h, its MoE aux loss or None)."""
     a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
     q, k, v = _qkv(a_in, lp, cfg, impl)
     q, k = _apply_rope(q, k, cos_sin)
     o = _seq_attention(q, k, v, cfg, h.shape[1])
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
-    return h + _mlp(m_in, lp, cfg, impl)
+    out, aux = _mlp(m_in, lp, cfg, impl)
+    return h + out, aux
 
 
-def forward_seq(params, cfg: ModelConfig, *, tokens):
+def _layers(tree, n: int):
+    """The stacked layer tree as ``n`` per-layer trees of views. A tensor
+    is split by one ``unbind``, whose backward stacks the layers'
+    gradients once; indexing a layer at a time would give every layer a
+    zero gradient the size of the whole stack."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    if isinstance(tree, QTensor):
+        return [tree.layer(i) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def forward_seq(params, cfg: ModelConfig, *, tokens, return_hidden=False,
+                with_aux=False):
     """Full-sequence causal forward of tokens (B, S) at positions 0..S-1,
-    with no cache. Returns logits (B, S, V) in f32 (the reference's first
-    output; the port returns no MoE aux loss, which only training reads,
-    and has no ``want_cache``)."""
+    with no cache (the port has no ``want_cache``). Returns logits
+    (B, S, V) in f32, the reference's first output, or under
+    ``return_hidden`` the final-norm hidden states (B, S, d), from which
+    the chunked loss computes its own head product. ``with_aux`` returns
+    (that, the MoE aux loss summed over layers, an f32 scalar; 0 for the
+    other families), as training reads it.
+
+    Under ``cfg.remat``, where autograd records, each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` on its scan body: the Mamba2 layers,
+    not hybrid's shared block). The forward bits are the same either
+    way."""
     _check_family(cfg)
     impl = cfg.kernel_impl
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     h = _embed(params, cfg, tokens, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, x):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, x,
+                                                     use_reentrant=False)
+        return fn(x)
+
+    layers = _layers(params["layers"], cfg.n_layers)
     if cfg.family in _RECURRENT:
         emb0, apps = h, _shared_apps(cfg)
-        for li in range(cfg.n_layers):
-            h = _ssm_layer(h, _layer(params["layers"], li), cfg, impl)[0]
+        for li, lp in enumerate(layers):
+            h = run(lambda x, lp=lp: _ssm_layer(x, lp, cfg, impl)[0], h)
             if li in apps:
                 h = _shared_block_seq(h, emb0, params["shared"], cfg,
                                       positions, impl)
     else:
         cos_sin = _rope(cfg, positions)
-        for li in range(cfg.n_layers):
-            h = _attn_layer_seq(h, _layer(params["layers"], li), cfg,
-                                cos_sin, impl)
+        for lp in layers:
+            h, a = run(functools.partial(_attn_layer_seq, lp=lp, cfg=cfg,
+                                         cos_sin=cos_sin, impl=impl), h)
+            if a is not None:
+                aux = aux + a
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
-    return _logits(params, cfg, h, impl=impl)
+    out = h if return_hidden else _logits(params, cfg, h, impl=impl)
+    return (out, aux) if with_aux else out
 
 
 # ---------------------------------------------------------------------------

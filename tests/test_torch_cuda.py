@@ -23,6 +23,14 @@ Tolerances, relative to the output's max magnitude:
     own) on the card against the same call on the CPU, bf16 output:
     2**-6, two bf16 ulps at the max (cuBLAS and the CPU sum the bf16
     expert products in another order, and the output rounds again).
+  * one train step (``training/steps.py``, plain torch ops, no kernel) on
+    the card against the same step on the CPU, from one state: in f32
+    compute, loss 1e-5 and grad norm 1e-4 relative (f32 sums in another
+    order), the parameters' update within 1e-3 of its norm, and no
+    element more than 2 x lr apart (Adam's first step moves an element
+    by lr x g / (|g| + eps): one whose gradient is near 0 can step the
+    other way); in bf16 compute, loss and grad norm 2e-2, and the update
+    within twice the CPU's own bf16 update against its f32 one.
 """
 import inspect
 
@@ -586,3 +594,56 @@ def test_kv_page_export_import_on_the_card(cuda_device, kv8):
     for k, v in kv.payload.items():
         assert _bytes_equal(back.payload[k], v), k
     assert dst.generate([P]) == want and dst.stats["prefix_hits"] == 1
+
+
+def _train_step(cfg, state, batch, dev):
+    from repro_torch.optim.adamw import AdamWConfig, tree_map
+    from repro_torch.training import steps as PS
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    step = PS.make_train_step(cfg, opt, microbatches=2)
+    new, m = step(tree_map(lambda x: x.to(dev), state),
+                  {k: v.to(dev) for k, v in batch.items()})
+    return tree_map(lambda x: x.cpu(), new["params"]), {
+        k: float(v) for k, v in m.items()}, float(m["lr"])
+
+
+def _update_err(new, ref, p0):
+    """max over leaves of |new - ref| / |ref - p0| (norms)."""
+    from repro_torch.optim.adamw import tree_leaves
+    return max(float((a.double() - b.double()).norm()
+                     / (b.double() - c.double()).norm().clamp_min(1e-30))
+               for a, b, c in zip(tree_leaves(new), tree_leaves(ref),
+                                  tree_leaves(p0)))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.training import steps as PS
+    cfg = get_arch("tinyllama-1.1b", reduced=True)
+    state = PS.init_train_state(cfg, AdamWConfig(),
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        got[dtype] = (_train_step(c, state, batch, cuda_device),
+                      _train_step(c, state, batch, "cpu"))
+    p0 = state["params"]
+    (card, mc, lr), (cpu, mp, _) = got["float32"]
+    assert abs(mc["loss"] - mp["loss"]) <= 1e-5 * mp["loss"]
+    assert abs(mc["grad_norm"] - mp["grad_norm"]) <= 1e-4 * mp["grad_norm"]
+    assert _update_err(card, cpu, p0) <= 1e-3
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        assert float((a - b).abs().max()) <= 2 * lr
+    cpu32 = cpu
+    (card, mc, lr), (cpu, mp, _) = got["bfloat16"]
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[k] - mp[k]) <= 2e-2 * mp[k], k
+    noise = _update_err(cpu, cpu32, p0)
+    assert _update_err(card, cpu, p0) <= 2 * noise, noise
+

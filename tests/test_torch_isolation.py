@@ -54,7 +54,10 @@ def test_engine_imports_without_jax():
             "repro_torch.core.quality, repro_torch.bridge, "
             "repro_torch.core.isa, repro_torch.launch.quickstart, "
             "repro_torch.benchmarks.shapes, repro_torch.serving.router, "
-            "repro_torch.serving.disagg, repro_torch.serving.frontend; "
+            "repro_torch.serving.disagg, repro_torch.serving.frontend, "
+            "repro_torch.training.steps, repro_torch.training.loop, "
+            "repro_torch.optim.adamw, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.ckpt, repro_torch.launch.train; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
