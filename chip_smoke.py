@@ -35,7 +35,8 @@ Phases, each of which exits nonzero on failure:
    its packed weights that the kernel serves (every one but the MoE
    expert stacks, which are multiplied by bmm) through the kernel and its
    plain version at decode M, f32 and bf16 out, at these tolerances, so
-   each (variant, K, N) that a served model runs is checked on the card.
+   each (variant, K, N) that a served model runs is checked on the card;
+   its f32 output is also held within 1e-6 of the exact (f64) product.
 3. serve, slice 1: full-width tinyllama-1.1b from random weights (seeded),
    packed with paper_llama_mix on the card, serves the paper's Table IV
    scenario (8 requests, 6-token prompts, 10 new tokens, 4 slots) through
@@ -106,26 +107,27 @@ Phases, each of which exits nonzero on failure:
    version's time; gpt2-paper's decode forward per packed (variant, K,
    N), the N = 50257 q2_k head among them, beside its bound and
    torch.matmul on the pre-dequantized bf16 weights.
-14. serve, slice 5: full-width llama3.2-1b (LM head tied to the
-   embedding: an f32 product, no kernel), qwen3-1.7b (qk-norm),
-   phi3-mini-3.8b (head N = 32064) and h2o-danube-1.8b (sliding window),
-   each from random weights (seeded) packed with paper_llama_mix on the
-   card, serve path 1's traffic; every forward must launch 32 + 80, 57 +
-   140, 65 + 160 and 49 + 120 q2_k + q3_k kernels, and greedy tokens must
-   equal generate_reference. qwen3-1.7b also serves path 2's traffic with
-   ``attn_impl="fused"``: 28 attention kernels every prefill-chunk
-   forward (D = 128, G = 2). phi3-mini-3.8b's decode forward is timed
-   per (variant, K, N) as phase 4 times a variant.
+14. serve, slice 5: llama3.2-1b (LM head tied to the embedding: an f32
+   product, no kernel), qwen3-1.7b (qk-norm), phi3-mini-3.8b (head N =
+   32064) and h2o-danube-1.8b (sliding window), at full width and depth
+   cut to 8 layers for time, each from random weights (seeded) packed
+   with paper_llama_mix on the card, serve path 1's traffic; every
+   forward must launch 16 + 40 (llama) or 17 + 40 q2_k + q3_k kernels,
+   and greedy tokens must equal generate_reference. qwen3-1.7b also
+   serves path 2's traffic with ``attn_impl="fused"``: 8 attention
+   kernels every prefill-chunk forward (D = 128, G = 2).
+   phi3-mini-3.8b's decode forward is timed per (variant, K, N) as phase
+   4 times a variant.
 15. temperature, slice 5: full-width qwen3-1.7b under paper_llama_mix at
    temperature 0.8, seed 7, path 1's traffic, without and with an EOS id
    (the token request 0 samples at its third step without it): the
    launch counts as in phase 14; run() equals generate_reference (on 4
    prompts, all it takes), an engine with prefill_batch=1 and a second
    engine of seed 7; seed 8 and greedy give other tokens; EOS ends
-   request 0 at its third step.
-16. long sequence, slice 5: full-width llama3.2-1b ``forward_seq`` at
+   request 0 at its third step (8 layers, as phase 14).
+16. long sequence, slice 5: llama3.2-1b (8 layers) ``forward_seq`` at
    B=1, S=4096 under ``"auto"``, which takes the blockwise attention
-   (launch counts zeroed just before and read just after: 32 + 80); its
+   (launch counts zeroed just before and read just after: 16 + 40); its
    logits at the last 16 positions against ``attn_impl="naive"`` at
    ``TOL_LONG``.
 17. int8 KV, slice 6: path 1's traffic on an int8 KV ring
@@ -161,11 +163,12 @@ Phases, each of which exits nonzero on failure:
    ``on_done`` once) and completes; with the slots full and two requests
    queued, a further submit raises ``EngineSaturated("queue_full")``.
    Phases 17-20 each print their wall time.
-21. MoE, slice 7: full-width olmoe-1b-7b (64 experts top-8, qk-norm) from
-   random weights (seeded), packed with default_serve_mix on the card
-   (the expert stacks along E*K, one layer at a time): 33 q2_k + 80 q3_k
-   matmuls (each expert stack counted once a layer). Path 1's traffic;
-   every forward launches 33 q2_k + 32 q3_k kernels (no kernel serves an
+21. MoE, slice 7: olmoe-1b-7b (64 experts top-8, qk-norm) at full width,
+   depth cut to 8 of 16 layers for time, from random weights (seeded),
+   packed with default_serve_mix on the card (the expert stacks along
+   E*K, one layer at a time): 17 q2_k + 40 q3_k matmuls (each expert
+   stack counted once a layer). Path 1's traffic; every forward launches
+   17 q2_k + 16 q3_k kernels (no kernel serves an
    expert stack: they are dequantized to bf16 and multiplied by bmm, as
    the reference's einsum), greedy tokens equal generate_reference, and
    an engine with prefill_batch=1 gives prefill_batch=4's tokens. Layer
@@ -175,26 +178,28 @@ Phases, each of which exits nonzero on failure:
    times a variant, and one decode forward's expert path by CUDA events
    (dequantize, bmm products, moe_block whole) are printed.
 22. MoE fused, slice 7: olmoe with ``attn_impl="fused"`` on path 2's
-   traffic: 16 attention kernels every prefill-chunk forward (D = 128,
+   traffic: 8 attention kernels every prefill-chunk forward (D = 128,
    G = 1), generate == generate_reference, and the token choices dropped
    a chunk forward (capacity 21 a expert a row at C = 128) printed and
-   nonzero; then phase 18's shared-prefix queue (a 512 MiB pool of 256
-   2-MiB pages): cache off, then on twice, the same tokens (a warm group
-   keeps the cold grid's whole chunks, so the same drops), 16 attention
-   launches a prefill-chunk forward, and a warm chunk's 16 attention
+   nonzero; then phase 18's shared-prefix queue (a 512 MiB pool of 512
+   1-MiB pages): cache off, then on twice, the same tokens (a warm group
+   keeps the cold grid's whole chunks, so the same drops), 8 attention
+   launches a prefill-chunk forward, and a warm chunk's 8 attention
    launches held against the plain version and timed.
-23. MoE, slice 7: full-width granite-moe-3b-a800m (40 experts top-8,
-   GQA 24/8, LM head N = 49155) as phase 21 without the second engine and
-   the CPU check: 65 q2_k + 160 q3_k matmuls, 65 q2_k + 64 q3_k launches
-   a forward, generate == generate_reference, timings as phase 21.
+23. MoE, slice 7: granite-moe-3b-a800m (40 experts top-8, GQA 24/8, LM
+   head N = 49155) at full width, 8 of 32 layers, as phase 21 without
+   the second engine and the CPU check: 17 q2_k + 40 q3_k matmuls, 17
+   q2_k + 16 q3_k launches a forward, generate == generate_reference,
+   timings as phase 21.
    Phases 21-23 each print their wall time.
-24. recurrent, slice 8: full-width mamba2-2.7b (64 Mamba2 layers, d 2560,
-   SSM state 128, LM head N = 50280) from random weights (seeded), packed
-   with default_serve_mix on the card one layer at a time (1 q2_k + 128
-   q3_k matmuls, each packed weight checked as above). Path 2's traffic
-   (8 requests of 256-512-token prompts, 32 new tokens, 128-token chunks,
-   4 slots, a 1024-position cache): every forward launches 1 q2_k + 128
-   q3_k kernels and no attention kernel, greedy tokens equal
+24. recurrent, slice 8: mamba2-2.7b (d 2560, SSM state 128, LM head N =
+   50280) at full width, depth cut to 16 of 64 Mamba2 layers for time,
+   from random weights (seeded), packed with default_serve_mix on the
+   card one layer at a time (1 q2_k + 32 q3_k matmuls, each packed weight
+   checked as above). Path 2's traffic (8 requests of 256-512-token
+   prompts, 32 new tokens, 128-token chunks, 4 slots, a 1024-position
+   cache): every forward launches 1 q2_k + 32 q3_k kernels and no
+   attention kernel, greedy tokens equal
    generate_reference, and an engine with prefill_batch=1 gives
    prefill_batch=4's tokens. Layer 0's mamba2_forward on the card equals
    the same call on the CPU at ``TOL_SSM``. The peak
@@ -204,15 +209,15 @@ Phases, each of which exits nonzero on failure:
    forward's SSD scans, the span between CUDA events beside their
    kernels' device time and the kernels of most device time
    (``torch.profiler``) and the matmul kernels' time are printed.
-25. recurrent, slice 8: full-width zamba2-1.2b (38 Mamba2 layers, d 2048,
-   and a shared attention block at width 4096 after every 6 layers) as
-   phase 24: 3 q2_k + 82 q3_k matmuls packed, 13 q2_k + 112 q3_k launches
-   a forward (the shared block's 8 matmuls at each of its 6
-   applications).
-26. checkpoint prefix cache, slice 8: zamba2-1.2b on phase 18's
-   shared-prefix queue with a 1 GiB pool (20 pages of one 128-token
-   chunk each: SSM state, conv tail and ring): cache off, then on twice;
-   the same tokens, 13 + 112 launches a forward, at least 4 hits then 8,
+25. recurrent, slice 8: zamba2-1.2b (d 2048, a shared attention block at
+   width 4096 after every 6 Mamba2 layers) at full width, depth cut to 12
+   of 38 layers (two applications of the shared block), as phase 24: 3
+   q2_k + 30 q3_k matmuls packed, 5 q2_k + 36 q3_k launches a forward
+   (the shared block's 8 matmuls at each application).
+26. checkpoint prefix cache, slice 8: zamba2-1.2b (12 layers) on phase
+   18's shared-prefix queue with a 1 GiB pool (62 pages of one 128-token
+   chunk each: SSM state, conv tail and rings): cache off, then on twice;
+   the same tokens, 5 + 36 launches a forward, at least 4 hits then 8,
    and the cold and warm prefill tok/s printed.
 27. disaggregated serving, slice 9 (path 20, run after phase 18 on its
    weights): full-width tinyllama-1.1b under extended_mix with the fused
@@ -280,6 +285,52 @@ Phases, each of which exits nonzero on failure:
 34. training under ``attn_impl="fused"`` raises a NotImplementedError
    that names ``naive`` and ``blockwise`` (the kernel has no backward).
    Phases 30, 32 and 33 each print their wall time.
+35. ``--policy auto`` on the other families, slice 11: ``resolve_policy``
+   with no policy file on full-width olmoe-1b-7b, mamba2-2.7b and
+   zamba2-1.2b at full depth: calibration, the search (2 x 64-token
+   evaluations through the kernels, q3_k_o probes included, 2 rounds),
+   the file written; the final policy must weakly dominate the seed on
+   KL and bytes. The searched packing serves path 1's traffic (every
+   forward launches one kernel a packed weight the kernel serves, no
+   kernel for an expert stack; greedy tokens equal generate_reference),
+   and the load branch on the written file packs the same bytes.
+36. qwen2-vl-72b (vlm: M-RoPE, 64 heads on 8 KV heads, d_ff 29568, a
+   152064-way head) at full width and depth under default_serve_mix,
+   built a layer at a time (``init_params`` of a one-layer config from a
+   generator seeded by (seed, layer), packed, copied into payloads
+   allocated for all 80 layers: the whole f32 tree, 285.8 GB, cannot
+   exist on one card), after checking at 2 layers that this equals
+   packing the stack at once, byte for byte: 161 q2_k + 320 q3_k + 80
+   q8_0 matmuls (w_down's K = 29568 is not a multiple of 256), 43.48 GB;
+   the build time, the peak memory and the packed bytes printed, and
+   every packed weight checked through the kernel as above (q8_0 at
+   (29568, 8192): the kernel's last 256-row tile partial). Then
+   ``training.steps.make_serve_steps`` under ``attn_impl="fused"``: a
+   prefill of 2 x 512 seeded f32 embeddings with three distinct M-RoPE
+   streams (a 4 x 8 x 8 patch grid, then text), ``cache_from_prefill``
+   into a 1024-slot ring, 16 decode steps on seeded embeddings; each
+   forward's launches per variant (161 + 320 + 80) and 80 attention
+   launches a prefill, finite logits; the first decode step's logits
+   against ``forward_seq``'s last position over the same 513 embeddings
+   (``TOL_EMBED_STEP``, argmax equal or the margin rule), and two
+   controls above that tolerance (the step at a position off by one, and
+   on a ring whose layers are rolled by one); one decode step's span and its kernels' device time beside its bound. Each
+   packed (variant, K, N) is timed over its first 8 layers' launches,
+   rows of M=512 and 128 of the q8_0 w_down equal M=1 bit for bit, and
+   the 80 f32 attention launches of a prefill are held against the
+   plain version and timed.
+37. musicgen-large (audio: sinusoidal positions, LayerNorm/GELU, 32
+   heads on 32 KV heads, D = 64) at full width and depth, packed whole,
+   the same serve steps: 97 q2_k + 192 q3_k launches a forward, 48
+   attention launches a prefill.
+38. training, slice 11: one ``make_train_step`` step (2 microbatches) of
+   each: reduced, card against CPU as phase 31 (qwen2-vl on (3, B, S)
+   M-RoPE positions); then at full width, 4 x 256 embeddings: musicgen
+   cut to 4 of 48 layers, a whole step; qwen2-vl cut to 1 of 80 layers,
+   its loss and gradients only (its 1.25 B-parameter head: the whole
+   step's update, which keeps the old and new state together, runs out
+   of memory at 1 layer); a finite loss and gradient norm, the peak
+   memory. Phases 35-38 each print their wall time.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -304,8 +355,15 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12     # CUDA cores, outside the tensor cores
+# f32 products on the tensor cores, as the attention kernel's f32 path makes
+# them: three TF32 MMAs a product (3xTF32) at the 495 TFLOP/s TF32 rate
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 
 TOL_F32 = 1e-5          # kernel vs plain, f32 out: summation order only
+TOL_EXACT = 1e-6        # kernel vs the f64 product of its bf16 operands, f32
+                        # out: a tile's 16 k16 steps in the tensor cores'
+                        # accumulator (not rounded to nearest), then f32
+                        # adds; a chain of 512 k16 steps read 1.02e-5
 TOL_BF16 = 2.0 ** -7    # bf16 out: one bf16 ulp at the output's max
 TOL_ATTN = 5e-6         # attention, f32 out, visible rows: the reference's
                         # own kernel-vs-naive tolerance (f32 order, tiles)
@@ -361,12 +419,15 @@ Q8K_BIG = (4096, 5632)
 Q8K_BYTES_PER_VALUE = 4 + 1 + 4 / 256 + 2 / 16   # f32 in; qs, d, bsums out
 GPT2_HEAD = (768, 50257)
 # slice 5: the rest of the dense family under paper_llama_mix, path 1's
-# traffic; matmul launches a forward (a tied head is an f32 product with
-# the embedding, no kernel)
-SLICE5_MODELS = (("llama3.2-1b", {"q2_k": 32, "q3_k": 80}),
-                 ("qwen3-1.7b", {"q2_k": 57, "q3_k": 140}),
-                 ("phi3-mini-3.8b", {"q2_k": 65, "q3_k": 160}),
-                 ("h2o-danube-1.8b", {"q2_k": 49, "q3_k": 120}))
+# traffic, at full width and depth cut to 8 layers (of 16, 28, 32 and 24)
+# to keep the run inside its time limit; (arch, layers, matmul launches a
+# forward: 2 q2_k and 5 q3_k a layer and the head's q2_k, but a tied head
+# is an f32 product with the embedding, no kernel)
+DEPTH5 = 8
+SLICE5_MODELS = (("llama3.2-1b", DEPTH5, {"q2_k": 16, "q3_k": 40}),
+                 ("qwen3-1.7b", DEPTH5, {"q2_k": 17, "q3_k": 40}),
+                 ("phi3-mini-3.8b", DEPTH5, {"q2_k": 17, "q3_k": 40}),
+                 ("h2o-danube-1.8b", DEPTH5, {"q2_k": 17, "q3_k": 40}))
 FUSED5 = "qwen3-1.7b"           # also serves path 2's traffic, fused
 TIMED5 = "phi3-mini-3.8b"       # its decode shapes timed one by one
 TEMP5 = dict(temperature=0.8, seed=7)
@@ -374,7 +435,8 @@ LONG5 = ("llama3.2-1b", 4096, 16)   # arch, S, last positions compared
 # blockwise against naive at S = 4096 in bf16, relative to the largest
 # logit: the two sum the same f32 softmax in another order, so a bf16
 # rounding of an attention output can flip by one step (2**-8) and move
-# the next layers' inputs; 8 such steps across 16 layers
+# the next layers' inputs; 8 such steps (a bound set at 16 layers, kept
+# at the cut depth)
 TOL_LONG = 2.0 ** -5
 # slice 6: the engine's int8 KV ring, prefix cache, speculative decoding
 # and SLO admission on full-width tinyllama-1.1b
@@ -393,38 +455,40 @@ SELF_PER_DRAFT = {"q2_k": 5, "q3_k": 10}    # 2 layers' wk, wv + the head
 SERVE_SLO = dict(SERVE, decode_chunk=2, preempt=True, max_queue=2)
 MARGIN_TOL = 0.1        # ROADMAP's parity contract (test_torch_engine.py)
 # slice 7: the MoE family at full width under default_serve_mix (the
-# reference launcher's default); (arch, variant_counts, matmul launches a
-# forward): the expert stacks are packed (counted once a layer) but run
-# as bmm on dequantized bf16 stacks, so no matmul kernel serves them
+# reference launcher's default), depth cut to 8 layers (of 16 and 32) for
+# time; (arch, layers, variant_counts, matmul launches a forward): the
+# expert stacks are packed (counted once a layer) but run as bmm on
+# dequantized bf16 stacks, so no matmul kernel serves them
 MOE_POLICY = "default_serve_mix"
-MOE_MODELS = (("olmoe-1b-7b", {"q2_k": 33, "q3_k": 80},
-               {"q2_k": 33, "q3_k": 32}),
-              ("granite-moe-3b-a800m", {"q2_k": 65, "q3_k": 160},
-               {"q2_k": 65, "q3_k": 64}))
+MOE_MODELS = (("olmoe-1b-7b", 8, {"q2_k": 17, "q3_k": 40},
+               {"q2_k": 17, "q3_k": 16}),
+              ("granite-moe-3b-a800m", 8, {"q2_k": 17, "q3_k": 40},
+               {"q2_k": 17, "q3_k": 16}))
 MOE_FUSED = "olmoe-1b-7b"       # also path 2's traffic fused, and the
                                 # prefix cache on phase 18's traffic
-# phase 18's queue on olmoe: 2 MiB pages (16 layers x 16 positions x 16
+# phase 18's queue on olmoe: 1 MiB pages (8 layers x 16 positions x 16
 # KV heads x 128 x 2 B x (k, v)), a 512 MiB pool
 SERVE_PREFIX_MOE = dict(SERVE_PREFIX, prefix_bytes=512 << 20)
-PREFIX_CAPACITY_MOE = 256
+PREFIX_CAPACITY_MOE = 512
 TOL_MOE = 2.0 ** -6     # one layer's moe_block, card vs CPU, bf16 out: the
                         # bf16 expert products summed in another order, and
                         # the output rounded again (tests/test_torch_cuda.py)
 # slice 8: the recurrent families at full width under default_serve_mix,
 # path 2's traffic (no attention kernel: zamba2's shared block prefills
-# through the naive attention, as the reference's); (arch, variant_counts,
-# matmul launches a forward): zamba2's shared block is packed once and
-# runs at each of its six applications
+# through the naive attention, as the reference's), depth cut for time to
+# 16 of 64 layers and 12 of 38 (two applications of zamba2's shared
+# block); (arch, layers, variant_counts, matmul launches a forward):
+# zamba2's shared block is packed once and runs at each application
 REC_POLICY = "default_serve_mix"
-REC_MODELS = (("mamba2-2.7b", {"q2_k": 1, "q3_k": 128},
-               {"q2_k": 1, "q3_k": 128}),
-              ("zamba2-1.2b", {"q2_k": 3, "q3_k": 82},
-               {"q2_k": 13, "q3_k": 112}))
+REC_MODELS = (("mamba2-2.7b", 16, {"q2_k": 1, "q3_k": 32},
+               {"q2_k": 1, "q3_k": 32}),
+              ("zamba2-1.2b", 12, {"q2_k": 3, "q3_k": 30},
+               {"q2_k": 5, "q3_k": 36}))
 REC_PREFIX = "zamba2-1.2b"      # phase 18's shared-prefix queue, phase 26
-# a checkpoint page is one 128-token chunk: 53 MB on zamba2 (39.8 MB of
-# SSM state, 1 MB of conv tail, 12.6 MB of ring for 6 applications)
+# a checkpoint page is one 128-token chunk: 17.1 MB on zamba2 at 12
+# layers (SSM state, conv tail, and the rings of 2 applications)
 SERVE_PREFIX_REC = dict(SERVE_PREFIX, prefix_bytes=1 << 30)
-PREFIX_CAPACITY_REC = 20
+PREFIX_CAPACITY_REC = 62
 TOL_SSM = 2.0 ** -6     # layer 0's mamba2_forward, card vs CPU, bf16 out:
                         # in_proj's bf16 output rounds differently where
                         # the f32 sums differ, and the scan carries it on
@@ -455,6 +519,37 @@ TOL_TRAIN_BF16 = 2e-2
 TRAIN_FAMILIES = (("granite-moe-3b-a800m", 4), ("mamba2-2.7b", 8),
                   ("zamba2-1.2b", 6))
 FAMILY_RUN = dict(steps=3, global_batch=4, seq_len=256)
+# slice 11: serve --policy auto on MoE, ssm and hybrid at full width
+SEARCH_FAMILIES = ("olmoe-1b-7b", "mamba2-2.7b", "zamba2-1.2b")
+# the embedding-input families at full width under default_serve_mix (the
+# reference launcher's default): qwen2-vl-72b's d_ff 29568 is not a
+# multiple of 256, so its w_down falls back to q8_0
+EMBED_POLICY = "default_serve_mix"
+EMBED_MODELS = ("qwen2-vl-72b", "musicgen-large")
+VL_COUNTS = {"q2_k": 161, "q3_k": 320, "q8_0": 80}
+MUSICGEN_COUNTS = {"q2_k": 97, "q3_k": 192}
+# the serve steps: a prefill of 2 x 512 embeddings, a 1024-slot ring, 16
+# decode steps
+EMBED_PROMPT, EMBED_CACHE, EMBED_DECODE = 512, 1024, 16
+# a decode step against forward_seq's last position, relative to the
+# largest logit: the decode step reads its K/V from the bf16 ring where
+# forward_seq keeps them in f32 (the f32 embeddings keep an f32 stream),
+# a bf16 rounding in each layer's K and V; and the attention is the plain
+# decode attention against the fused kernel. Two controls must read above
+# it: the step at a position off by one, and on a ring whose layers are
+# rolled by one
+TOL_EMBED_STEP = 2.0 ** -7
+# layers timed a (variant, K, N): qwen2-vl's 80 layers' w_gate alone
+# would take 38.7 GB dequantized
+EMBED_TIMED_LAYERS = 8
+# (arch, layers, whether the optimizer update runs) at full width:
+# qwen2-vl cut to 1 of 80 layers, its loss and gradients only: its 152064
+# x 8192 head alone is 1.25 B parameters, and the port's AdamW returns
+# new trees, so at the update the old and new params and moments live
+# together; the whole step at 1 layer ran out of memory in the update
+# (72.7 GB allocated, 2.12 B parameters); musicgen cut to 4 of 48, the
+# whole step
+EMBED_TRAIN = (("qwen2-vl-72b", 1, False), ("musicgen-large", 4, True))
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -542,19 +637,23 @@ def rows_independent_of_m(torch, Q, PB, dev, g, variant) -> bool:
     tile, on two shapes whose K is split: wk's (2048, 256), where the
     partials go through the workspace at every M, and w_up's (2048, 5632),
     where one block runs a tile's splits in turn at M=512."""
-    for K, N in ROW_SHAPES:
-        x = torch.randn(512, K, generator=g, device=dev).bfloat16()
-        t = Q.quantize(variant, torch.randn(K, N, generator=g, device=dev)
-                       / K ** 0.5)
-        for out_dtype in (torch.float32, torch.bfloat16):
-            full = {M: PB.bfp_matmul_cuda(x[:M], t, out_dtype=out_dtype)
-                    for M in (512, 128)}
-            for m in ROWS_CHECKED:
-                one = PB.bfp_matmul_cuda(x[m:m + 1], t,
-                                         out_dtype=out_dtype)[0]
-                if not all(torch.equal(f[m], one) for M, f in full.items()
-                           if m < M):
-                    return False
+    return all(rows_of_weight(torch, PB, Q.quantize(variant, torch.randn(
+        K, N, generator=g, device=dev) / K ** 0.5), dev, g)
+        for K, N in ROW_SHAPES)
+
+
+def rows_of_weight(torch, PB, t, dev, g):
+    """Rows of an M=512 and an M=128 product against the M=1 product of
+    each row, bit for bit, on one packed weight of the model."""
+    x = torch.randn(512, t.shape[0], generator=g, device=dev).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        full = {M: PB.bfp_matmul_cuda(x[:M], t, out_dtype=out_dtype)
+                for M in (512, 128)}
+        for m in ROWS_CHECKED:
+            one = PB.bfp_matmul_cuda(x[m:m + 1], t, out_dtype=out_dtype)[0]
+            if not all(torch.equal(f[m], one) for M, f in full.items()
+                       if m < M):
+                return False
     return True
 
 
@@ -954,7 +1053,8 @@ def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     counts = variant_counts(report, qp)
-    print(f"[pack] full-width {cfg.name} under {policy} packed in "
+    print(f"[pack] full-width {cfg.name} ({cfg.n_layers} layers) under "
+          f"{policy} packed in "
           f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
     check(counts == expect, f"{policy} layout: {counts}, expected {expect}")
     check_shapes(torch, qp, cfg, PB, dev)
@@ -962,7 +1062,7 @@ def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
 
 
 def phase_search(torch, cfg, params, resolve_policy, quantize_params,
-                 variant_counts, PB, dev, path):
+                 variant_counts, PB, dev, path, tag="search"):
     """``serve --policy auto`` with no file at ``path``: calibrate, search,
     write, pack with the search's stats. The launch counts are zeroed just
     before and read just after."""
@@ -979,14 +1079,14 @@ def phase_search(torch, cfg, params, resolve_policy, quantize_params,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     meta = info["meta"]
     check(path.exists(), "the search wrote no policy file")
-    print(f"[search] calibration ({meta['calib_tokens']} rows) and search "
+    print(f"[{tag}] calibration ({meta['calib_tokens']} rows) and search "
           f"in {t_search:.1f}s: {info['evaluations']} evaluations at "
           f"M={M_SEARCH}; seed kl {meta['seed']['kl']:.6f} bytes "
           f"{meta['seed']['bytes']} -> final kl {meta['final']['kl']:.6f} "
           f"bytes {meta['final']['bytes']} (top1 {meta['final']['top1']:.3f}"
           f", pseudo-ppl {meta['final']['pseudo_ppl']:.3f})", flush=True)
-    print(f"[search] assignment: {info['assignment']}", flush=True)
-    print(f"[search] kernel launches during the search: {launches}; peak "
+    print(f"[{tag}] assignment: {info['assignment']}", flush=True)
+    print(f"[{tag}] kernel launches during the search: {launches}; peak "
           f"device memory {peak_gb:.2f} GB", flush=True)
     check(launches["q3_k_o"] > 0, "the search launched no q3_k_o kernel")
     check(meta["final"]["kl"] <= meta["seed"]["kl"] * (1 + 1e-6)
@@ -996,7 +1096,7 @@ def phase_search(torch, cfg, params, resolve_policy, quantize_params,
     qp, report = quantize_params(params, policy, calib=calib)
     torch.cuda.synchronize()
     counts = variant_counts(report, qp)
-    print(f"[search] searched policy packed in "
+    print(f"[{tag}] searched policy packed in "
           f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
     return qp, counts, launches, dict(t_search=t_search, peak_gb=peak_gb,
                                       evaluations=info["evaluations"],
@@ -1239,13 +1339,23 @@ def _groups(xs, n):
     return [xs[i:i + n] for i in range(0, len(xs), n)]
 
 
+def _leaves(tree, prefix=""):
+    """(path, leaf) of a parameter tree, a packed weight (QTensor) or a
+    float tensor each."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
 def _packed(tree):
     """The packed weights (QTensors) of a parameter tree."""
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _packed(v)
-        elif hasattr(v, "variant"):
-            yield v
+    return (v for _, v in _leaves(tree) if hasattr(v, "variant"))
+
+
+def _float_leaves(tree):
+    return (v for _, v in _leaves(tree) if not hasattr(v, "variant"))
 
 
 def _kernel_weights(qp, cfg, uses=False):
@@ -1269,19 +1379,39 @@ def _kernel_weights(qp, cfg, uses=False):
     return groups
 
 
-# (arch, variant, K, N) -> (weights checked, largest f32 abs error) of
+# (arch, variant, K, N) -> (weights checked, largest f32 abs error against
+# the plain version, the kernel's and the plain version's largest f32
+# relative error against the exact product, the kernel's K splits) of
 # every full-width model packed, filled by check_shapes
 PACKED_CHECKED = {}
+# columns of the f64 product computed at once (the head's 152064 at once
+# would be 10 GB)
+EXACT_COLS = 16384
+
+
+def exact_product(torch, x, t):
+    """x @ W in f64, W the packed weight dequantized and rounded to bf16 as
+    both the kernel and the plain version take it: each product of a bf16
+    x and a bf16 weight is exact in f32, so the two differ from this only
+    by their f32 summation."""
+    from repro_torch.core.quantize import dequantize
+    w = dequantize(t, dtype=torch.float32).bfloat16()
+    xd = x.double()
+    return torch.cat([xd @ w[:, j:j + EXACT_COLS].double()
+                      for j in range(0, w.shape[1], EXACT_COLS)], 1)
 
 
 def check_shapes(torch, qp, cfg, PB, dev):
     """Each weight of ``_kernel_weights`` through the kernel against its
     plain version at M = max_slots, f32 and bf16 out, at phase 2's
-    tolerances; one line a (variant, K, N)."""
+    tolerances; one line a (variant, K, N). The kernel's f32 output is also
+    held within ``TOL_EXACT`` of the exact (f64) product, and the plain
+    version's error against it printed beside, with the kernel's K
+    splits (one part of 32 tiles at wide N)."""
     g = torch.Generator(device=dev).manual_seed(13)
     for (variant, K, N), ts in sorted(_kernel_weights(qp, cfg).items()):
         x = torch.randn(M_DECODE, K, generator=g, device=dev).bfloat16()
-        e32 = e16 = worst = 0.0
+        e32 = e16 = worst = ek = ep = 0.0
         for t in ts:
             y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
             ref = PB.bfp_matmul_plain(x, t, out_dtype=torch.float32)
@@ -1289,23 +1419,36 @@ def check_shapes(torch, qp, cfg, PB, dev):
                   f"{cfg.name} {variant} ({K}, {N}): non-finite output")
             e32 = max(e32, rel_err(y, ref))
             worst = max(worst, float((y - ref).abs().max()))
+            exact = exact_product(torch, x, t)
+            ek = max(ek, rel_err(y.double(), exact))
+            ep = max(ep, rel_err(ref.double(), exact))
+            del exact
             e16 = max(e16, rel_err(PB.bfp_matmul_cuda(x, t),
                                    PB.bfp_matmul_plain(x, t)))
-        PACKED_CHECKED[(cfg.name, variant, K, N)] = (len(ts), worst)
+        splits = PB.k_splits(K, N)
+        PACKED_CHECKED[(cfg.name, variant, K, N)] = (len(ts), worst, ek, ep,
+                                                     splits)
         print(f"[packed] {cfg.name} {variant} ({K}, {N}) x{len(ts)}, M="
               f"{M_DECODE}: kernel vs plain f32 rel {e32:.2e} (tol "
-              f"{TOL_F32:.0e}), bf16 rel {e16:.2e} (tol {TOL_BF16:.2e})",
-              flush=True)
+              f"{TOL_F32:.0e}), bf16 rel {e16:.2e} (tol {TOL_BF16:.2e}); "
+              f"against the exact product: kernel {ek:.2e} (tol "
+              f"{TOL_EXACT:.0e}), plain {ep:.2e}; K in {splits} part(s) of "
+              f"{-(-K // 256) // splits} 256-row tiles", flush=True)
         check(e32 <= TOL_F32, f"{cfg.name} {variant} ({K}, {N}) f32 error")
+        check(ek <= TOL_EXACT, f"{cfg.name} {variant} ({K}, {N}): f32 error "
+              "against the exact product")
         check(e16 <= TOL_BF16, f"{cfg.name} {variant} ({K}, {N}) bf16 "
               "error")
 
 
-def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag):
+def phase_shape_timing(torch, qp, cfg, PB, Q, dev, tag, layers=None):
     """One decode forward's launches (M = max_slots) of each packed
     (variant, K, N) of the model that the kernel serves, timed as phase 4
-    times a variant's (each checked by ``check_shapes`` at packing)."""
-    groups = _kernel_weights(qp, cfg, uses=True)
+    times a variant's (each checked by ``check_shapes`` at packing); with
+    ``layers``, the launches of the first ``layers`` layers (and the
+    head's)."""
+    groups = {k: ts[:layers] for k, ts in
+              _kernel_weights(qp, cfg, uses=True).items()}
     g = torch.Generator(device=dev).manual_seed(14)
     out = {}
     for (variant, K, N), ts in sorted(groups.items()):
@@ -1342,8 +1485,8 @@ def phase_slice5(torch, np, get_arch, T, quantize_params, variant_counts,
     launches, attn, timing = {}, {}, None
     keep = {}
     t_phase = time.perf_counter()
-    for arch, per_forward in SLICE5_MODELS:
-        cfg = get_arch(arch)
+    for arch, depth, per_forward in SLICE5_MODELS:
+        cfg = get_arch(arch).replace(n_layers=depth)
         qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
                              get_policy, "paper_llama_mix", dev, per_forward,
                              PB)
@@ -1965,9 +2108,9 @@ def phase_slice7(torch, np, get_arch, T, quantize_params, variant_counts,
     by path, attention launches by path, per-shape matmul timing by arch,
     results for the summary line)."""
     launches, attn, timing, out = {}, {}, {}, {}
-    for arch, counts, per_forward in MOE_MODELS:
+    for arch, depth, counts, per_forward in MOE_MODELS:
         t_phase = time.perf_counter()
-        cfg = get_arch(arch)
+        cfg = get_arch(arch).replace(n_layers=depth)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
@@ -2235,9 +2378,9 @@ def phase_slice8(torch, np, get_arch, T, M2, quantize_params, variant_counts,
     (matmul launches by path, per-shape matmul timing by arch, results
     for the summary line)."""
     launches, timing, out = {}, {}, {}
-    for arch, counts, per_forward in REC_MODELS:
+    for arch, depth, counts, per_forward in REC_MODELS:
         t_phase = time.perf_counter()
-        cfg = get_arch(arch)
+        cfg = get_arch(arch).replace(n_layers=depth)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
@@ -2880,17 +3023,15 @@ def _update_err(new, ref, p0, leaves) -> float:
 
 
 def phase_train_card_vs_cpu(torch, np, get_arch, S, AdamWConfig, leaves,
-                            dev):
-    """Phase 31: one make_train_step step of reduced tinyllama from one
-    state, on the card against the CPU, in f32 and in bf16 compute."""
-    cfg = get_arch(TRAIN_ARCH, reduced=True)
+                            dev, arch=TRAIN_ARCH):
+    """Phase 31: one make_train_step step of reduced tinyllama (or
+    ``arch``) from one state, on the card against the CPU, in f32 and in
+    bf16 compute."""
+    cfg = get_arch(arch, reduced=True)
     opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
     state = S.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
                                device="cpu")
-    rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (4, 64)).astype(np.int32))
-        for k in ("tokens", "labels")}
+    batch = train_batch(torch, np, cfg, 4, 64, "cpu")
 
     def one(c, where):
         new, m = S.make_train_step(c, opt, microbatches=2)(
@@ -3148,6 +3289,519 @@ def phase_slice10(torch, np, get_arch, dev, root, PB, PA, PK):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 11: --policy auto on MoE, ssm and hybrid; the embedding-input
+# families (qwen2-vl-72b, musicgen-large) through the serve steps
+# ---------------------------------------------------------------------------
+
+def _per_forward(qp, cfg):
+    """Matmul launches a forward by variant: every weight the kernel
+    serves (``_kernel_weights`` with zamba2's shared block once an
+    application; MoE expert stacks run by bmm, no kernel)."""
+    out = {}
+    for (v, _, _), ts in _kernel_weights(qp, cfg, uses=True).items():
+        out[v] = out.get(v, 0) + len(ts)
+    return out
+
+
+def phase_search_families(torch, np, get_arch, T, resolve_policy,
+                          quantize_params, variant_counts, Engine,
+                          ServeConfig, PB, PA, dev, tmp):
+    """Phase 35: ``serve --policy auto`` through ``resolve_policy`` on
+    olmoe-1b-7b, mamba2-2.7b and zamba2-1.2b at full width and depth: the
+    search (calibration, 2 x 64-token evaluations, ``SEARCH_ROUNDS``
+    rounds) weakly dominates its seed, the searched packing serves path
+    1's traffic (launch counts, generate == generate_reference), and the
+    load branch on the written file packs the same bytes."""
+    out, launches = {}, {}
+    for arch in SEARCH_FAMILIES:
+        t_phase = time.perf_counter()
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        path = Path(tmp) / f"auto_{arch}.json"
+        qp, counts, search_launches, res = phase_search(
+            torch, cfg, params, resolve_policy, quantize_params,
+            variant_counts, PB, dev, path, tag=f"search {arch}")
+        per_forward = _per_forward(qp, cfg)
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                 PROMPT_LEN)]
+                   for _ in range(N_REQUESTS)]
+        key = f"{arch}_policy_auto_searched_serve"
+        launches[key], _, s = phase_serve(
+            torch, cfg, qp, Engine, ServeConfig, PB, PA, T, dev,
+            f"search {arch} serve", SERVE, prompts, per_forward, 0)
+        launches[f"{arch}_policy_auto_search"] = search_launches
+        t0 = time.perf_counter()
+        pol, calib, info = resolve_policy(cfg, params, policy="auto",
+                                          arch=arch, policy_json=str(path),
+                                          device=dev)
+        loaded, _ = quantize_params(params, pol, calib=calib)
+        same = _same_trees(torch, loaded, qp)
+        print(f"[search {arch}] load branch: {path.name} loaded and packed "
+              f"in {time.perf_counter() - t0:.1f}s; payloads == the "
+              f"search's packing: {same}", flush=True)
+        check(info is None and same, f"{arch}: the load branch packed "
+              "other bytes than the search")
+        res.update(per_forward=per_forward, serve_decode_tok_per_s=s[
+            "tok_per_s"], wall_s=time.perf_counter() - t_phase)
+        out[arch] = res
+        print(f"[search {arch}] phase 35 took {res['wall_s']:.1f}s",
+              flush=True)
+        del params, qp, loaded
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def embed_inputs(torch, cfg, B, S, g, dev):
+    """Seeded f32 embeddings (B, S, d) and, under M-RoPE, (3, B, S)
+    positions with three distinct streams: a 4 x 8 x 8 (t, h, w) grid of
+    vision patches, then text. A text position rides all three streams
+    and is its sequence index, since ``decode_step``'s position is both
+    its ring slot and its rotary position."""
+    emb = torch.randn(B, S, cfg.d_model, generator=g, device=dev)
+    if cfg.pos_emb != "mrope":
+        return emb, None
+    t, h, w = torch.meshgrid(torch.arange(4), torch.arange(8),
+                             torch.arange(8), indexing="ij")
+    vis = torch.stack([t.reshape(-1), h.reshape(-1), w.reshape(-1)])
+    text = torch.arange(vis.shape[1], S).expand(3, -1)
+    pos = torch.cat([vis, text], 1)[:, None].expand(3, B, S)
+    return emb, pos.to(torch.int32).contiguous().to(dev)
+
+
+def _layer_seed(seed, li):
+    return seed * 1_000_003 + li
+
+
+def build_by_layer(torch, cfg, T, quantize_params, policy, dev, seed=0,
+                   n_layers=None):
+    """The packed tree of ``cfg`` at depth ``n_layers`` (default all),
+    built a layer at a time: ``init_params`` of a one-layer config from a
+    generator seeded by (seed, layer), packed, and copied into payloads
+    allocated for the whole stack (a concatenation along L, without two
+    copies at once). The head and final norm are layer 0's draw's."""
+    L = n_layers or cfg.n_layers
+    one = cfg.replace(n_layers=1)
+    stack, report, rest = None, None, None
+
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        if hasattr(node, "variant"):
+            return type(node)(node.variant, node.shape, {
+                k: torch.empty((L,) + v.shape[1:], dtype=v.dtype, device=dev)
+                for k, v in node.data.items()})
+        return torch.empty((L,) + node.shape[1:], dtype=node.dtype,
+                           device=dev)
+
+    def put(dst, src, li):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], li)
+        elif hasattr(dst, "variant"):
+            for k, v in dst.data.items():
+                v[li] = src.data[k][0]
+        else:
+            dst[li] = src[0]
+
+    for li in range(L):
+        p = T.init_params(one, torch.Generator(device=dev).manual_seed(
+            _layer_seed(seed, li)), device=dev)
+        q, rep = quantize_params({"layers": p.pop("layers")}, policy)
+        if li == 0:
+            stack, report = alloc(q["layers"]), rep
+            rest, rest_rep = quantize_params(p, policy)
+            report.update(rest_rep)
+        put(stack, q["layers"], li)
+        del p, q
+    rest["layers"] = stack
+    return rest, report
+
+
+def _same_trees(torch, a, b) -> bool:
+    qa, qb = ({k: v for k, v in _leaves(t) if hasattr(v, "variant")}
+              for t in (a, b))
+    return sorted(qa) == sorted(qb) and all(
+        qa[k].variant == qb[k].variant and _same_payloads(torch, qa[k], qb[k])
+        for k in qa)
+
+
+def phase_build_vl(torch, cfg, T, quantize_params, variant_counts, policy,
+                   PB, dev):
+    """qwen2-vl-72b's packed tree at full width and depth, a layer at a
+    time; first, at 2 layers, the layer-at-a-time tree against packing
+    the 2-layer float stack at once, byte for byte."""
+    two, _ = build_by_layer(torch, cfg, T, quantize_params, policy, dev,
+                            n_layers=2)
+    floats = [T.init_params(cfg.replace(n_layers=1), torch.Generator(
+        device=dev).manual_seed(_layer_seed(0, li)), device=dev)
+        for li in range(2)]
+    cat = dict(floats[0])
+    cat["layers"] = _cat_layers(torch, floats[0]["layers"],
+                                floats[1]["layers"])
+    del floats
+    whole, _ = quantize_params(cat, policy)
+    del cat
+    same = _same_trees(torch, two, whole)
+    print(f"[vl] 2 layers at full width: packed a layer at a time == the "
+          f"2-layer stack packed at once, byte for byte: {same}",
+          flush=True)
+    check(same, "qwen2-vl: the layer-at-a-time packing differs")
+    del two, whole
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qp, report = build_by_layer(torch, cfg, T, quantize_params, policy, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sizes = {"packed": sum(t.nbytes for t in _packed(qp))}
+    sizes["float"] = sum(v.numel() * v.element_size()
+                         for v in _float_leaves(qp))
+    counts = variant_counts(report, qp)
+    print(f"[vl] full-width {cfg.name}, {cfg.n_layers} layers, built a "
+          f"layer at a time under {policy.name} in {build_s:.1f}s: {counts} "
+          f"matmuls; packed {sizes['packed'] / 1e9:.3f} GB + float "
+          f"{sizes['float'] / 1e9:.4f} GB; peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB", flush=True)
+    check(counts == VL_COUNTS, f"qwen2-vl layout {counts}, expected "
+          f"{VL_COUNTS}")
+    check_shapes(torch, qp, cfg, PB, dev)
+    return qp, dict(build_s=build_s, peak_allocated_gb=peak,
+                    packed_gb=sizes["packed"] / 1e9,
+                    float_gb=sizes["float"] / 1e9, matmuls=counts)
+
+
+def _cat_layers(torch, a, b):
+    if isinstance(a, dict):
+        return {k: _cat_layers(torch, a[k], b[k]) for k in a}
+    return torch.cat([a, b])
+
+
+def phase_embed_serve(torch, cfg, qp, S, T, PB, PA, dev, tag):
+    """Phases 36-37's serving: ``make_serve_steps`` under the fused
+    attention. Prefill 2 rows of ``EMBED_PROMPT`` seeded f32 embeddings
+    (three distinct M-RoPE streams where the model has them), then
+    ``cache_from_prefill`` into a ``EMBED_CACHE``-slot ring, then
+    ``EMBED_DECODE`` decode steps on seeded embeddings; the launch counts
+    zeroed just before and read just after each; finite logits. The first
+    decode step's logits against ``forward_seq``'s last position over the
+    same prompt + 1 embeddings (argmax equal, or the margin rule; max
+    error relative to the largest logit within ``TOL_EMBED_STEP``)."""
+    cfgf = cfg.replace(attn_impl="fused")
+    prefill, decode = S.make_serve_steps(cfgf)
+    B, P, N = 2, EMBED_PROMPT, EMBED_DECODE
+    g = torch.Generator(device=dev).manual_seed(31)
+    emb, pos = embed_inputs(torch, cfg, B, P + N, g, dev)
+    per_forward = _per_forward(qp, cfg)
+
+    def batch(n):
+        b = {"embeds": emb[:, :n]}
+        if pos is not None:
+            b["positions"] = pos[:, :, :n]
+        return b
+    prefill(qp, batch(16))                       # warm-up: allocator, cuBLAS
+    torch.cuda.synchronize()
+    PB.reset_launches()
+    PA.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(qp, batch(P))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    got = (dict(PB.launches), PA.launches["prefill_attn"])
+    want = ({v: per_forward.get(v, 0) for v in PB.VARIANTS}, cfg.n_layers)
+    print(f"[{tag}] prefill of {B} x {P} embeddings in {prefill_s * 1e3:.1f} "
+          f"ms ({B * P / prefill_s:.1f} tok/s): launches {got[0]}, "
+          f"prefill_attn {got[1]}", flush=True)
+    check(got == want, f"{tag} prefill launches {got}, expected {want}")
+    check(logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{tag}: bad prefill logits")
+    cache = T.cache_from_prefill(cfgf, caches, P, cache_len=EMBED_CACHE)
+    del caches
+    check(cache["k"].shape[2] == EMBED_CACHE
+          and int(cache["pos"][0, P - 1]) == P - 1
+          and int(cache["pos"][0, P]) == -1, f"{tag}: cache_from_prefill")
+    # the controls of the decode-vs-forward_seq check, on copies of the
+    # ring: the first step at position P + 1 (its rotary position and slot
+    # off by one), and on a ring whose layers are rolled by one (each
+    # layer reads the K/V of the layer below)
+    control = {}
+    for name in ("position off by one", "ring layers rolled by one"):
+        ring = {k: v.clone() for k, v in cache.items()}
+        at = P + 1 if name == "position off by one" else P
+        if name == "ring layers rolled by one":
+            ring["k"], ring["v"] = ring["k"].roll(1, 0), ring["v"].roll(1, 0)
+        control[name] = decode(qp, ring, {
+            "embeds": emb[:, P],
+            "position": torch.full((B,), at, dtype=torch.long,
+                                   device=dev)})[0]
+        del ring
+    PB.reset_launches()
+    PA.reset_launches()
+    steps, first = [], None
+    for j in range(N):
+        position = torch.full((B,), P + j, dtype=torch.long, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode(qp, cache, {"embeds": emb[:, P + j],
+                                       "position": position})
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(lg).all()), f"{tag}: decode step {j} "
+              "logits not finite")
+        if j == 0:
+            first = lg.clone()
+    dec_got = (dict(PB.launches), PA.launches["prefill_attn"])
+    want = ({v: N * per_forward.get(v, 0) for v in PB.VARIANTS}, 0)
+    print(f"[{tag}] {N} decode steps (B={B}): median "
+          f"{statistics.median(steps):.2f} ms a step (host clock after a "
+          f"sync), launches {dec_got[0]}, prefill_attn {dec_got[1]}",
+          flush=True)
+    check(dec_got == want, f"{tag} decode launches {dec_got}, expected "
+          f"{want}")
+    seq = T.forward_seq(qp, cfgf, **batch(P + 1))[:, -1]
+    err = float((first - seq).abs().max() / seq.abs().max())
+    control = {k: float((v - seq).abs().max() / seq.abs().max())
+               for k, v in control.items()}
+    top2 = torch.topk(seq, 2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    same = bool(torch.equal(first.argmax(-1), seq.argmax(-1)))
+    print(f"[{tag}] decode step 0 vs forward_seq's position {P} over "
+          f"{P + 1} embeddings: rel {err:.2e} (tol {TOL_EMBED_STEP:.2e}), "
+          f"argmax equal {same} (top-2 margin {margin:.4f}); controls: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in control.items()),
+          flush=True)
+    check(err <= TOL_EMBED_STEP, f"{tag}: decode step vs forward_seq")
+    check(same or margin < MARGIN_TOL, f"{tag}: argmax differs past the "
+          "margin rule")
+    check(min(control.values()) > TOL_EMBED_STEP, f"{tag}: a control of "
+          f"the decode check reads within its tolerance: {control}")
+    del seq
+    # one decode step: its span, and its kernels' device time
+    position = torch.full((B,), P + N, dtype=torch.long, device=dev)
+    step = lambda: decode(qp, cache, {"embeds": emb[:, -1],  # noqa: E731
+                                      "position": position})
+    span = _device_ms(torch, step, 3)
+    prof = _profile(torch, step)
+    wbytes = sum(t.nbytes for t in _packed(qp)) + sum(
+        v.numel() * v.element_size() for v in _float_leaves(qp))
+    ring = sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v"))
+    bound = (wbytes + ring) / HBM_BYTES_PER_S * 1e3
+    out = dict(prefill_ms=prefill_s * 1e3,
+               prefill_tok_per_s=B * P / prefill_s,
+               decode_step_ms=statistics.median(steps),
+               decode_step_span_ms=span, decode_step_bound_ms=bound,
+               decode_vs_forward_rel=err, decode_controls_rel=control,
+               argmax_equal=same, per_forward=per_forward,
+               launches={v: got[0][v] + dec_got[0][v] for v in PB.VARIANTS},
+               attn_launches=got[1] + dec_got[1])
+    if prof is not None:
+        out.update(decode_kernel_ms=prof[0], decode_launches=prof[1],
+                   decode_top_kernels=prof[2])
+    print(f"[{tag}] one decode step (B={B}): {span:.2f} ms between CUDA "
+          f"events; kernels " + ("not measured (the profiler shows no "
+                                 "device time)" if prof is None else
+                                 f"{prof[0]:.2f} ms of device time in "
+                                 f"{prof[1]} launches (torch.profiler)")
+          + f"; bound {bound:.2f} ms ({(wbytes + ring) / 1e9:.2f} GB of "
+          f"weights and ring at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+          + ("" if prof is None else "; most device time: " + "; ".join(
+              f"{k} x{c} {ms:.3f} ms" for k, c, ms in prof[2][:5])),
+          flush=True)
+    return out
+
+
+def phase_embed_attn_timing(torch, PA, cfg, B, S, dev, tag):
+    """The attention launches of one prefill (``forward_seq`` under the
+    fused attention: q_pos = kv_pos = 0..S-1, f32 q/k/v, as the f32
+    embeddings give) at the model's shape, held against the plain version
+    on the visible rows and timed beside its bound, the plain version and
+    ``scaled_dot_product_attention``."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    jobs = [attn_inputs(torch, dev, B, S, H, KH, D, 0, 0, torch.float32, g)
+            for _ in range(cfg.n_layers)]
+    q, k, v, qp, kp = jobs[0]
+    vis = visible_rows(qp, kp, None)
+    err = rel_err(PA.prefill_attn_cuda(q, k, v, qp, kp),
+                  PA.prefill_attn_plain(q, k, v, qp, kp))
+    check(err <= TOL_ATTN, f"{tag}: attention at (B={B}, S={S}, H={H}, "
+          f"KH={KH}, D={D}) rel {err}")
+    kern = _device_ms(torch, lambda: [PA.prefill_attn_cuda(*j)
+                                      for j in jobs], 5)
+    plain = _device_ms(torch, lambda: [PA.prefill_attn_plain(*j)
+                                       for j in jobs], 2)
+    lib = _sdpa_ms(torch, jobs)
+    nbytes = len(jobs) * (2 * q.numel() * q.element_size()
+                          + 2 * k.numel() * k.element_size()
+                          + (qp.numel() + kp.numel()) * 4)
+    flops = len(jobs) * int(vis.sum()) * H * 4 * D
+    res = _timing(kern, plain, lib, nbytes, flops, len(jobs),
+                  peak=F32_3XTF32_FLOPS_PER_S)
+    res["max_rel_err"] = err
+    print(f"[{tag}] prefill_attn prefill forward ({len(jobs)} launches, "
+          f"B={B} S={S} H={H} KH={KH} D={D}, f32): kernel vs plain rel "
+          f"{err:.2e} (tol {TOL_ATTN:.0e}); kernel {kern:.3f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {nbytes / 1e6:.1f} "
+          f"MB, {flops / 1e9:.2f} GFLOP at the 3xTF32 rate), plain "
+          f"{plain:.3f} ms, scaled_dot_product_attention {lib:.3f} ms; x "
+          f"lib {kern / lib:.2f}", flush=True)
+    return res
+
+
+def phase_train_embed(torch, np, get_arch, S, AdamWConfig, leaves, dev):
+    """Phase 38: one make_train_step step (2 microbatches) of each
+    embedding-input family: reduced, card against CPU at the
+    ``TOL_TRAIN_*`` tolerances (phase 31's check, on embeddings and, for
+    qwen2-vl, (3, B, S) positions); then full width, depth cut, on the
+    card alone: a finite loss and gradient norm, the peak memory above
+    what was allocated before. Where the update cannot fit
+    (``EMBED_TRAIN``), the step's loss and gradients
+    (``steps.value_and_grad``) run without it."""
+    out = {}
+    for arch, depth, update in EMBED_TRAIN:
+        out[arch] = {"card_vs_cpu": phase_train_card_vs_cpu(
+            torch, np, get_arch, S, AdamWConfig, leaves, dev, arch=arch)}
+        cfg = get_arch(arch).replace(n_layers=depth)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 1e9
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batch = train_batch(torch, np, cfg, 4, 256, dev)
+        t0 = time.perf_counter()
+        if update:
+            state = S.init_train_state(cfg, opt, gen, device=dev)
+            state, m = S.make_train_step(cfg, opt, microbatches=2)(state,
+                                                                    batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            params = state["params"]
+            del state
+        else:
+            params = S.T.init_params(cfg, gen, device=dev)
+            loss, _, grads = S.value_and_grad(S.make_loss_fn(cfg), params,
+                                              batch)
+            loss = float(loss)
+            gnorm = float(torch.stack([g.float().norm()
+                                       for g in leaves(grads)]).norm())
+            del grads
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 - base
+        n = _n_params(params)
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"{arch}: loss {loss}, grad norm {gnorm}")
+        out[arch]["full"] = {"layers": depth, "params": n, "loss": loss,
+                             "grad_norm": gnorm, "update": update,
+                             "step_s": step_s, "peak_allocated_gb": peak}
+        what = ("a train step in 2 microbatches" if update else
+                "loss and gradients, no update (the step ran out of memory "
+                "in its update)")
+        print(f"[train] {arch} at full width, {depth} of "
+              f"{get_arch(arch).n_layers} layers ({n:,} params), 4 x 256 "
+              f"embeddings, {what}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+              f"{step_s:.2f}s (the first), peak "
+              f"torch.cuda.max_memory_allocated {peak:.2f} GB above the "
+              f"{base:.2f} GB allocated before", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(torch, np, cfg, B, S_, where, seed=0):
+    """A seeded batch: tokens, or f32 embeddings (with (3, B, S) M-RoPE
+    positions of three distinct streams where the model has them), then
+    labels."""
+    rng = np.random.default_rng(seed)
+    b = {}
+    if cfg.embed_input:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S_)).astype(
+            np.int32)
+    else:
+        b["embeds"] = rng.standard_normal((B, S_, cfg.d_model)).astype(
+            np.float32)
+    b["labels"] = rng.integers(0, cfg.vocab_size, (B, S_)).astype(np.int32)
+    if cfg.pos_emb == "mrope":
+        t = np.arange(S_)
+        b["positions"] = np.broadcast_to(
+            np.stack([t // 16, (t // 4) % 4, t % 4])[:, None],
+            (3, B, S_)).astype(np.int32)
+    return {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+
+
+def phase_slice11(torch, np, get_arch, T, quantize_params, variant_counts,
+                  get_policy, resolve_policy, Engine, ServeConfig, PB, PA, Q,
+                  dev):
+    """Phases 35-38. Returns (matmul launches by path, attention launches
+    by path, per-shape timing by arch, results for the summary line)."""
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.training import steps as S
+    launches, attn, timing, out = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        l35, out["search"] = phase_search_families(
+            torch, np, get_arch, T, resolve_policy, quantize_params,
+            variant_counts, Engine, ServeConfig, PB, PA, dev, tmp)
+    launches.update(l35)
+    policy = get_policy(EMBED_POLICY)
+    for arch in EMBED_MODELS:
+        t_phase = time.perf_counter()
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if arch == "qwen2-vl-72b":
+            qp, res = phase_build_vl(torch, cfg, T, quantize_params,
+                                     variant_counts, policy, PB, dev)
+        else:
+            qp = pack_full_width(torch, cfg, T, quantize_params,
+                                 variant_counts, get_policy, EMBED_POLICY,
+                                 dev, MUSICGEN_COUNTS, PB)
+            res = {}
+        PB.reset_launches()
+        PA.reset_launches()
+        res["serve"] = phase_embed_serve(torch, cfg, qp, S, T, PB, PA, dev,
+                                         f"embed {arch}")
+        res["peak_allocated_gb_serve"] = torch.cuda.max_memory_allocated() / 1e9
+        # launches of the main path, as counted: one prefill and
+        # EMBED_DECODE steps
+        launches[f"{arch}_serve_steps"] = res["serve"]["launches"]
+        attn[f"{arch}_serve_steps"] = res["serve"]["attn_launches"]
+        timing[arch] = phase_shape_timing(torch, qp, cfg, PB, Q, dev,
+                                          "embed timing",
+                                          layers=EMBED_TIMED_LAYERS)
+        if arch == "qwen2-vl-72b":
+            g = torch.Generator(device=dev).manual_seed(34)
+            # layer 0's view, not held past the call: it keeps the whole
+            # 80-layer payload (20.6 GB) alive
+            shape = qp["layers"]["mlp"]["w_down"].shape
+            ok = rows_of_weight(torch, PB,
+                                qp["layers"]["mlp"]["w_down"].layer(0), dev,
+                                g)
+            print(f"[embed timing] {arch} q8_0 w_down {shape} (K % 256 = "
+                  f"{shape[0] % 256}: the last 256-row tile partial): rows "
+                  f"of M=512 and 128 == M=1 bit for bit: {ok}", flush=True)
+            check(ok, f"{arch}: a row of the q8_0 w_down product depends "
+                  "on M")
+            res["q8_0_rows_independent_of_m"] = ok
+        del qp
+        torch.cuda.empty_cache()
+        res["attn_timing"] = phase_embed_attn_timing(
+            torch, PA, cfg, 2, EMBED_PROMPT, dev, "embed timing")
+        res["wall_s"] = time.perf_counter() - t_phase
+        print(f"[embed] {arch} phase {36 if arch == 'qwen2-vl-72b' else 37}"
+              f" took {res['wall_s']:.1f}s", flush=True)
+        out[arch] = res
+    t_phase = time.perf_counter()
+    out["train"] = phase_train_embed(torch, np, get_arch, S, AdamWConfig,
+                                     tree_leaves, dev)
+    print(f"[train] phase 38 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launches, attn, timing, out
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -3305,6 +3959,12 @@ def main() -> None:
         torch, np, get_arch, T, M2, quantize_params, variant_counts,
         get_policy, Engine, ServeConfig, PB, PA, Q, dev)
 
+    # slice 11: --policy auto on MoE, ssm and hybrid; the embedding-input
+    # families through the serve steps
+    launches11, attn11, timing11, slice11 = phase_slice11(
+        torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
+        resolve_policy, Engine, ServeConfig, PB, PA, Q, dev)
+
     # slice 10: training at full width (path 23)
     slice10 = phase_slice10(torch, np, get_arch, dev, root, PB, PA, PK)
 
@@ -3323,7 +3983,8 @@ def main() -> None:
                    **{p: launches5[p][v] for p in launches5},
                    **{p: launches6[p][v] for p in launches6},
                    **{p: launches7[p][v] for p in launches7},
-                   **{p: launches8[p][v] for p in launches8}}
+                   **{p: launches8[p][v] for p in launches8},
+                   **{p: launches11[p][v] for p in launches11}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -3342,12 +4003,15 @@ def main() -> None:
             kernels[-1]["extended_mix"] = timing2[v]
         if v in timing5:
             kernels[-1][f"{TIMED5}_decode_shapes"] = timing5[v]
-        for arch, t7 in {**timing7, **timing8}.items():
+        for arch, t7 in {**timing7, **timing8, **timing11}.items():
             if v in t7:
                 kernels[-1][f"{arch}_decode_shapes"] = t7[v]
-        checked = {f"{a} {K}x{N}": {"weights": n, "max_abs_err": e}
-                   for (a, vv, K, N), (n, e) in PACKED_CHECKED.items()
-                   if vv == v}
+        checked = {f"{a} {K}x{N}": {"weights": n, "max_abs_err": e,
+                                    "kernel_vs_exact_rel": ek,
+                                    "plain_vs_exact_rel": ep,
+                                    "k_splits": sp}
+                   for (a, vv, K, N), (n, e, ek, ep, sp)
+                   in PACKED_CHECKED.items() if vv == v}
         if checked:
             kernels[-1]["packed_weights_checked"] = checked
         if v in slice6["verify_timing"]:
@@ -3361,10 +4025,10 @@ def main() -> None:
         "source": "src/repro_torch/csrc/prefill_attn.cu",
         "replaces": "src/repro/kernels/prefill_attn.py:80",
         "launches": attn1 + attn2 + sum(attn5.values())
-        + sum(attn6.values()) + sum(attn7.values()),
+        + sum(attn6.values()) + sum(attn7.values()) + sum(attn11.values()),
         "launches_by_path": {"paper_llama_mix": attn1,
                              "extended_mix_fused": attn2, **attn5, **attn6,
-                             **attn7},
+                             **attn7, **attn11},
         "max_abs_err": max_abs["prefill_attn"],
         "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],
@@ -3374,7 +4038,9 @@ def main() -> None:
         "bytes": attn_timing["bytes"], "flops": attn_timing["flops"],
         "warm_prefix_chunk": slice6["warm_attn_timing"],
         f"{MOE_FUSED}_warm_prefix_chunk": slice7["fused"][
-            "warm_attn_timing"]})
+            "warm_attn_timing"],
+        **{f"{a}_prefill_f32": slice11[a]["attn_timing"]
+           for a in EMBED_MODELS}})
     q8k = q8k_timing["forward"]
     kernels.append({
         "name": "q8k_quantize", "route": "cuda",
@@ -3402,6 +4068,7 @@ def main() -> None:
     print(f"[slice9] summary: {json.dumps(summary9)}", flush=True)
     print(f"[slice8] summary: {json.dumps(slice8)}", flush=True)
     print(f"[slice10] summary: {json.dumps(slice10)}", flush=True)
+    print(f"[slice11] summary: {json.dumps(slice11)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

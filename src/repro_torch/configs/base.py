@@ -8,9 +8,11 @@ the dense llama family whole (``llama3.2-1b`` with its tied LM head,
 ``qwen3-1.7b`` with qk-norm, ``phi3-mini-3.8b``, ``h2o-danube-1.8b``
 with its sliding window, and the paper's ``tinyllama-1.1b`` and
 ``mobilellama-1.4b``), the gpt2 family (``gpt2-paper``), the MoE
-family (``olmoe-1b-7b``, ``granite-moe-3b-a800m``) and the recurrent
-families (``mamba2-2.7b``, ssm; ``zamba2-1.2b``, hybrid); vlm and audio
-join with the slice that ports them.
+family (``olmoe-1b-7b``, ``granite-moe-3b-a800m``), the recurrent
+families (``mamba2-2.7b``, ssm; ``zamba2-1.2b``, hybrid) and the two
+embedding-input families (``qwen2-vl-72b``, vlm with M-RoPE;
+``musicgen-large``, audio with sinusoidal positions): every arch of the
+reference.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ class ModelConfig:
     hybrid_attn_d_ff: int = 0
 
     # frontend
-    embed_input: bool = True        # False: input_specs provides embeddings
+    embed_input: bool = True        # False: the caller provides embeddings
     max_position: int = 1 << 20
 
     # runtime knobs
@@ -111,8 +113,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 ARCH_IDS = (
-    "llama3.2-1b", "qwen3-1.7b", "phi3-mini-3.8b", "h2o-danube-1.8b",
-    "granite-moe-3b-a800m", "olmoe-1b-7b", "zamba2-1.2b", "mamba2-2.7b",
+    "qwen2-vl-72b", "llama3.2-1b", "qwen3-1.7b", "phi3-mini-3.8b",
+    "h2o-danube-1.8b", "granite-moe-3b-a800m", "olmoe-1b-7b",
+    "musicgen-large", "zamba2-1.2b", "mamba2-2.7b",
     # the paper's own evaluation models (Table III/IV)
     "gpt2-paper", "tinyllama-1.1b", "mobilellama-1.4b",
 )

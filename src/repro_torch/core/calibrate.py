@@ -146,7 +146,10 @@ def run_calibration(params, cfg, *, tokens=None, batch: int = 2,
     ``n_batches`` random (batch, seq) batches are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the parameters' device
     (the search needs the activations' distribution shape, not a
-    dataset). The model runs on the device its parameters lie on."""
+    dataset). A family without a token embedding (``cfg.embed_input``
+    False) takes (B, S, d) f32 embeddings instead: ``tokens`` then holds
+    those, and the random draw is standard normal, as the reference's.
+    The model runs on the device its parameters lie on."""
     from repro_torch.models import transformer as T
 
     dev = tree_device(params)
@@ -158,10 +161,14 @@ def run_calibration(params, cfg, *, tokens=None, batch: int = 2,
         g = torch.Generator(device=dev).manual_seed(seed)
         batches = [torch.randint(0, cfg.vocab_size, (batch, seq),
                                  generator=g, device=dev)
+                   if cfg.embed_input else
+                   torch.randn(batch, seq, cfg.d_model, generator=g,
+                               device=dev)
                    for _ in range(n_batches)]
+    key = "tokens" if cfg.embed_input else "embeds"
     with collecting() as col:
         for b in batches:
-            T.forward_seq(params, cfg, tokens=b)
+            T.forward_seq(params, cfg, **{key: b})
     return _stats_from(col)
 
 

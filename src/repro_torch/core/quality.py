@@ -21,19 +21,23 @@ from repro_torch.device import resolve_device, tree_device
 
 def eval_tokens(cfg, *, batch: int = 2, seq: int = 64, seed: int = 1234,
                 device="cuda") -> torch.Tensor:
-    """Deterministic (batch, seq) eval tokens, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (not the
-    reference's ``jax.random`` draw; the tests hand both the same
-    tokens)."""
+    """Deterministic eval inputs, drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (not the reference's ``jax.random`` draw;
+    the tests hand both the same inputs): (batch, seq) tokens, or (batch,
+    seq, d) standard-normal f32 embeddings for a family without a token
+    embedding (``cfg.embed_input`` False), as the reference's."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    if not cfg.embed_input:
+        return torch.randn(batch, seq, cfg.d_model, generator=g, device=dev)
     return torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
                          device=dev)
 
 
 def _forward_logits(params, cfg, inputs) -> torch.Tensor:
     from repro_torch.models import transformer as T
-    return T.forward_seq(params, cfg, tokens=inputs).to(torch.float32)
+    key = "tokens" if cfg.embed_input else "embeds"
+    return T.forward_seq(params, cfg, **{key: inputs}).to(torch.float32)
 
 
 def logit_metrics(teacher_logits, student_logits) -> Dict[str, float]:

@@ -65,10 +65,15 @@
 //     values, so the fragment loads hit distinct banks.
 //   * One main loop for every M: the same instruction sequence runs for
 //     M = 1 and M = 512; the token tile only sets how many groups share a
-//     fragment. Within a split each output sums its k16 steps in ascending
-//     k, and an mma's output element depends only on its own column of A
-//     and row of B, so a row's value never depends on M or on its place in
-//     a group or tile: batched admission equals sequential admission.
+//     fragment. Each output sums a 256-row tile's 16 k16 steps in
+//     ascending k in the mma's accumulator, from zero, and a split adds
+//     its tile sums in ascending k with f32 adds that round to nearest:
+//     the tensor cores' accumulation does not round to nearest, and a
+//     chain of every k16 step of K = 8192 (one split, at wide N) drifted
+//     to 1e-5 of the output, 50 times BLAS's error. An mma's output
+//     element depends only on its own column of A and row of B, so a
+//     row's value never depends on M or on its place in a group or tile:
+//     batched admission equals sequential admission.
 //   * A K split fixed by (K, N), never by M: the wrapper passes S =
 //     k_splits(K, N), which divides the super-blocks along K, chosen so
 //     that column tiles times S fill the 132 SMs at decode. Split s of an
@@ -569,12 +574,9 @@ bfp_matmul_kernel(const __nv_bfloat16* __restrict__ x, const Ptrs p,
   // column cl + 1
   const int cl = 16 * warp + 2 * g;
 
-  // acc: the current split's sum; tot: the folded splits' sum
-  float acc[NG][4], tot[FOLD ? NG : 1][4];
-#pragma unroll
-  for (int j = 0; j < NG; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // acc: the current tile's sum, in the mma's accumulator; part: the
+  // current split's sum of its tiles; tot: the folded splits' sum
+  float acc[NG][4], part[NG][4], tot[FOLD ? NG : 1][4];
 
   // one split's super-blocks, or (folded) every split's in turn
   const int sb0 = FOLD ? 0 : split * tiles_per_split;
@@ -592,30 +594,37 @@ bfp_matmul_kernel(const __nv_bfloat16* __restrict__ x, const Ptrs p,
       cp_async_wait<0>();
     }
     __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     tile_product<VARIANT, NG>(tiles[i & 1], acc, cl,
                               min(kSB, K - sb * kSB) / 16);
+    // the split's tiles: part = ((t0 + t1) + t2) + ..., rounded to nearest
+    const bool first = (sb - sb0) % tiles_per_split == 0;
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[j][e] = first ? acc[j][e] : __fadd_rn(part[j][e], acc[j][e]);
     if constexpr (FOLD) {
       if ((sb + 1) % tiles_per_split == 0) {
         // a split ends: tot = ((s0 + s1) + s2) + ...
 #pragma unroll
         for (int j = 0; j < NG; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < 4; ++e)
             tot[j][e] = sb + 1 == tiles_per_split
-                            ? acc[j][e]
-                            : __fadd_rn(tot[j][e], acc[j][e]);
-            acc[j][e] = 0.f;
-          }
+                            ? part[j][e]
+                            : __fadd_rn(tot[j][e], part[j][e]);
       }
     }
     __syncthreads();  // tile i & 1 is refilled by the next iteration
   }
-  if constexpr (FOLD) {
 #pragma unroll
-    for (int j = 0; j < NG; ++j)
+  for (int j = 0; j < NG; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = tot[j][e];
-  }
+    for (int e = 0; e < 4; ++e) acc[j][e] = FOLD ? tot[j][e] : part[j][e];
 
   // the (8 NG tokens x kBN columns) f32 tile through shared memory, so the
   // stores coalesce along N

@@ -11,6 +11,9 @@ queue of requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --policy auto --policy-json results/auto_tinyllama.json
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --policy auto --search-rounds 1
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --policy paper_llama_mix --temperature 0.8 --seed 7 --stream
 
@@ -39,8 +42,10 @@ Every dense config of the port serves (``--arch`` llama3.2-1b,
 qwen3-1.7b, phi3-mini-3.8b, h2o-danube-1.8b, tinyllama-1.1b,
 mobilellama-1.4b), gpt2-paper, the MoE configs (olmoe-1b-7b,
 granite-moe-3b-a800m) and the recurrent ones (mamba2-2.7b, zamba2-1.2b)
-under any hand-written policy; ``--policy auto`` on a MoE, ssm or hybrid
-arch raises (its search is ROADMAP queue 1 item 3). For ssm and hybrid
+under any policy, ``--policy auto`` included. qwen2-vl-72b and
+musicgen-large take embeddings, not tokens, so the launcher refuses
+them, as the reference's does; ``training.steps.make_serve_steps``
+serves them. For ssm and hybrid
 the chunk is clamped down to a divisor of ``--cache-len`` and
 ``--prefix-page`` is ignored: a checkpoint page is one prefill chunk.
 ``--temperature T`` samples (0, the default, is greedy), ``--eos-id``
@@ -100,10 +105,6 @@ def resolve_policy(cfg, params, *, policy: str, arch: str,
     that rule packs without them."""
     if policy != "auto":
         return get_policy(policy), None, None
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"--policy auto on the {cfg.family} arch {arch!r} is not ported "
-            "yet (ROADMAP queue 1 item 3); pass a named policy")
     from repro_torch.launch.policy_search import (save_searched_policy,
                                                   search_policy)
     path = policy_json or f"results/auto_{arch}.json"
@@ -233,6 +234,9 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch, reduced=args.reduced)
+    if not cfg.embed_input:
+        raise SystemExit(f"{args.arch} has a stub modality frontend; "
+                         "the serve launcher needs token inputs")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
     if args.no_quant:

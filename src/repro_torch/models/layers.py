@@ -1,11 +1,12 @@
 """Model building blocks: norms, rotary embeddings, attention, MLPs.
 
-Counterpart of ``repro.models.layers`` for the dense llama family and
-gpt2 (LayerNorm, GELU MLP). Plain functions on tensors; any weight
-matrix may be a packed ``QTensor``, in which case the matmul goes to
-``kernels.ops.bfp_matmul`` (the CUDA kernel on the card). Shapes and
+Counterpart of ``repro.models.layers``: RMSNorm and LayerNorm, split-half
+RoPE and Qwen2-VL's M-RoPE, sinusoidal positions, SwiGLU and GELU MLPs.
+Plain functions on tensors; any weight matrix may be a packed
+``QTensor``, in which case the matmul goes to ``kernels.ops.bfp_matmul``
+(the CUDA kernel on the card). Shapes and
 layouts are the reference's: q ``(B, S, H, D)``, caches
-``(B, T, KH, D)``, positions ``(B, S)``.
+``(B, T, KH, D)``, positions ``(B, S)`` (``(3, B, S)`` for M-RoPE).
 
 The matmul inputs feed ``core.calibrate.tap`` at the reference's sites
 (inert outside ``calibrate.collecting``). Attention is the reference's
@@ -19,7 +20,7 @@ its plain version on the CPU). ``verify_attention`` replays
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -71,10 +72,26 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (exps / d_head))
 
 
-def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float):
-    """positions: (B, S). Returns cos/sin (B, S, D/2) in f32."""
+def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float,
+                 mrope_sections: Optional[Tuple[int, int, int]] = None):
+    """positions: (B, S), or (3, B, S) for M-RoPE. Returns cos/sin
+    (B, S, D/2) in f32.
+
+    M-RoPE (Qwen2-VL): the D/2 rotary frequencies are split into
+    (temporal, height, width) sections of ``mrope_sections`` frequencies;
+    each section rotates by its own position stream. Where the three
+    streams coincide (text) it is RoPE."""
     inv = rope_freqs(d_head, theta, device=positions.device)
     ang = positions[..., None].to(torch.float32) * inv
+    if positions.dim() == 3:
+        if mrope_sections is None:
+            raise ValueError("(3, B, S) positions need mrope_sections")
+        sel = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                    device=positions.device)
+                         for i, n in enumerate(mrope_sections)])
+        # frequency j takes its angle from stream sel[j]
+        ang = torch.gather(ang.movedim(0, -1), -1,
+                           sel.expand(*ang.shape[1:3], -1)[..., None])[..., 0]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -87,6 +104,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+def sincos_pos_emb(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(B, S) -> (B, S, d_model) fixed sinusoidal embedding in f32
+    (musicgen): sines of the first half of the frequencies, then cosines."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

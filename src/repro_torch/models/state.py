@@ -8,9 +8,8 @@ validation pass, ``validate_serve_features``, when an engine is built.
 through: init, slot scatter, ring snapshot and rewind, page and
 checkpoint copies. Every method delegates to ``models.transformer``.
 
-The table is the reference's, all seven rows, whether or not the port
-serves the family yet (``transformer._check_family`` says which it does:
-vlm and audio are ROADMAP queue 1 item 5). Capability semantics:
+The table is the reference's, all seven rows (the engine refuses vlm and
+audio, which take embeddings, not token ids). Capability semantics:
 
 * ``kv_ring``: the decode cache is a position-addressed KV ring; pages,
   speculation rollback and attention-head TP key off it.

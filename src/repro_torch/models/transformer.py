@@ -8,28 +8,32 @@ MoE family (the dense block with a top-k expert layer, ``models/moe.py``,
 in place of the MLP), and the recurrent families: ssm (Mamba2 blocks,
 ``models/mamba2.py``) and hybrid (Zamba2: a Mamba2 backbone with one
 shared attention block over concat(hidden, initial embedding) at width
-2d after every ``hybrid_attn_every`` layers).
+2d after every ``hybrid_attn_every`` layers), and the two families
+that take embeddings instead of tokens (``cfg.embed_input`` False, no
+``wte``): vlm (the dense block with M-RoPE over (3, B, S) position
+streams) and audio (LayerNorm/GELU with sinusoidal positions).
 Parameters are a plain dict tree with the reference's paths and stacked
 layer axis; a weight may be a packed ``QTensor`` whose payloads carry
 that axis too.
 The reference's layer ``scan`` is a Python loop over layers that indexes
 the stacked tensors.
 
-``forward_seq`` is the cache-free full-sequence forward that
-calibration, the quality metrics and training (``training/steps.py``)
-run. Caches: ``k``/``v`` of shape ``(L, B, T, KH, Dh)`` and ``pos``
-``(B, T)`` int32 with -1 for an empty slot, as in the reference; under
-``cfg.kv_cache_quant`` ``k``/``v`` hold int8 codes and
-``k_scale``/``v_scale`` ``(L, B, T, KH)`` their f32 per-row scales. A
-recurrent cache holds ``conv`` ``(L, B, W-1, C)`` in the cache dtype and
-``state`` ``(L, B, H, P, N)`` in f32; hybrid adds one bf16 ring a
-shared-block application, ``k``/``v`` ``(napp, B, T, KH, 2d/H)``, and
-``pos``. Where the reference returns an updated copy, ``decode_step``,
-``prefill_chunk``, ``verify_chunk``, ``verify_scan``,
-``cache_set_slots``, ``cache_scatter_pages``, ``cache_ring_rewind``,
-``cache_scatter_checkpoints`` and ``cache_insert_checkpoints`` update
-the tensors in place (saving a copy of the whole cache per step) and
-return the same dict.
+``forward_seq`` is the full-sequence forward that calibration, the
+quality metrics, training and the serve steps (``training/steps.py``)
+run; under ``want_cache`` it returns the payload that
+``cache_from_prefill`` turns into a decode cache. Caches: ``k``/``v`` of
+shape ``(L, B, T, KH, Dh)`` and ``pos`` ``(B, T)`` int32 with -1 for an
+empty slot, as in the reference; under ``cfg.kv_cache_quant``
+``k``/``v`` hold int8 codes and ``k_scale``/``v_scale`` ``(L, B, T,
+KH)`` their f32 per-row scales. A recurrent cache holds ``conv`` ``(L,
+B, W-1, C)`` in the cache dtype and ``state`` ``(L, B, H, P, N)`` in
+f32; hybrid adds one bf16 ring a shared-block application, ``k``/``v``
+``(napp, B, T, KH, 2d/H)``, and ``pos``. Where the reference returns an
+updated copy, ``decode_step``, ``prefill_chunk``, ``verify_chunk``,
+``verify_scan``, ``cache_set_slots``, ``cache_scatter_pages``,
+``cache_ring_rewind``, ``cache_scatter_checkpoints`` and
+``cache_insert_checkpoints`` update the tensors in place (saving a copy
+of the whole cache per step) and return the same dict.
 
 The speculative-decoding pieces (``verify_chunk``, ``verify_scan``,
 ``cache_ring_snapshot``/``cache_ring_rewind``) and the prefix cache's page
@@ -56,20 +60,20 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 
 _RECURRENT = ("ssm", "hybrid")
-_PORTED_FAMILIES = ("dense", "gpt2", "moe") + _RECURRENT
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The port has the dense llama family, gpt2, MoE, ssm and hybrid;
-    vlm and audio are ROADMAP queue 1 item 5."""
-    unported = [f for f, on in (
-        (f"family {cfg.family!r} (ROADMAP queue 1 item 5)",
-         cfg.family not in _PORTED_FAMILIES),
+    """Every family of the reference is ported (``ModelConfig`` refuses an
+    unknown one); an activation or position embedding outside the
+    reference's set raises."""
+    unknown = [f for f, on in (
         (f"act {cfg.act!r}", cfg.act not in ("swiglu", "gelu")),
-        (f"pos_emb {cfg.pos_emb!r}", cfg.pos_emb not in ("rope", "learned"))
+        (f"pos_emb {cfg.pos_emb!r}",
+         cfg.pos_emb not in ("rope", "mrope", "sincos", "learned"))
     ) if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+    if unknown:
+        raise NotImplementedError(
+            f"outside the reference's set: {', '.join(unknown)}")
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +110,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             out["b"] = zeros(shape)
         return out
 
-    p: Dict[str, Any] = {"wte": dense_init((V, d), d)}
+    p: Dict[str, Any] = {}
+    if cfg.embed_input:
+        p["wte"] = dense_init((V, d), d)
     if cfg.pos_emb == "learned":
         p["wpe"] = dense_init((cfg.max_position, d), 1.0) * 0.02
     if cfg.family in _RECURRENT:
@@ -185,23 +191,39 @@ def _layer(tree, i: int):
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens, positions):
-    # the embedding is never packed (qlinear never quantizes ``wte``)
-    h = params["wte"][tokens].to(torch_dtype(cfg.dtype))
+def _embed(params, cfg: ModelConfig, tokens=None, positions=None,
+           embeds=None):
+    """Token embeddings in ``cfg.dtype``, or the caller's ``embeds`` as
+    they are: the reference does not cast them, so f32 embeddings into a
+    bf16 config keep an f32 residual stream until a matmul rounds its
+    input. Then the learned or sinusoidal positions (B, S) are added."""
+    if embeds is not None:
+        h = embeds
+    else:
+        # the embedding is never packed (qlinear never quantizes ``wte``)
+        h = params["wte"][tokens].to(torch_dtype(cfg.dtype))
     if cfg.pos_emb == "learned":
         # JAX clamps an out-of-range gather index, and the reference reads
         # past max_position (the padding columns of a prefill chunk, which
         # the engine pads to whole chunks); torch would raise, so clamp
         pos = positions.clamp(0, cfg.max_position - 1)
         h = h + params["wpe"][pos].to(h.dtype)
+    elif cfg.pos_emb == "sincos":
+        h = h + L.sincos_pos_emb(positions, cfg.d_model).to(h.dtype)
     return h
 
 
 def _rope(cfg: ModelConfig, positions):
-    """cos/sin tables for rotary archs, None for learned positions."""
-    if cfg.pos_emb != "rope":
+    """cos/sin tables for rotary archs, None otherwise. Under M-RoPE,
+    (B, S) positions are text: the same position on all three streams."""
+    if cfg.pos_emb == "rope":
+        return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    if cfg.pos_emb != "mrope":
         return None
-    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+    if positions.dim() == 2:
+        positions = positions[None].expand(3, *positions.shape)
+    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta,
+                          cfg.mrope_sections)
 
 
 def _mlp(m_in, lp, cfg: ModelConfig, impl):
@@ -561,18 +583,21 @@ def _attn_layer_decode(h, lp, ring, slot_pos, position, slot, cfg,
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
-                tokens, position, live=None):
-    """One decode step. tokens: (B,) int; position: (B,) absolute position
-    of the new token. Returns (logits (B, V) f32, cache), the cache updated
-    in place.
+                tokens=None, embeds=None, position, live=None):
+    """One decode step. tokens: (B,) int, or embeds: (B, d) for a family
+    without a token embedding; position: (B,) absolute position of the new
+    token, its ring slot ``position % T`` and, on all three M-RoPE streams,
+    its rotary position. Returns (logits (B, V) f32, cache), the cache
+    updated in place.
 
     live: optional (B,) bool slot mask for continuous batching -- dead
     slots run the math but do NOT mutate their cache or position
     book-keeping, so a freed slot can be re-admitted without stale state."""
     _check_family(cfg)
     impl = cfg.kernel_impl
-    B = tokens.shape[0]
-    h = _embed(params, cfg, tokens, position)[:, None, :]   # (B,1,d)
+    B = position.shape[0]
+    h = _embed(params, cfg, tokens, position,
+               embeds)[:, None, :]                         # (B,1,d)
     if cfg.family in _RECURRENT:
         h = _recurrent_decode(params, cfg, cache, h, position, live, impl)
         h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
@@ -759,7 +784,8 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
 
 
 def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
-    """One block over the whole sequence: (h, its MoE aux loss or None)."""
+    """One block over the whole sequence: (h, its MoE aux loss or None,
+    its post-RoPE (k, v) (B, S, KH, Dh), the layer's cache payload)."""
     a_in = L.norm(h, lp["ln1"], cfg.norm_type, cfg.norm_eps)
     q, k, v = _qkv(a_in, lp, cfg, impl)
     q, k = _apply_rope(q, k, cos_sin)
@@ -767,7 +793,7 @@ def _attn_layer_seq(h, lp, cfg: ModelConfig, cos_sin, impl):
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
     out, aux = _mlp(m_in, lp, cfg, impl)
-    return h + out, aux
+    return h + out, aux, (k, v)
 
 
 def _layers(tree, n: int):
@@ -783,15 +809,29 @@ def _layers(tree, n: int):
     return list(torch.unbind(tree, 0))
 
 
-def forward_seq(params, cfg: ModelConfig, *, tokens, return_hidden=False,
+def forward_seq(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                positions=None, want_cache=False, return_hidden=False,
                 with_aux=False):
-    """Full-sequence causal forward of tokens (B, S) at positions 0..S-1,
-    with no cache (the port has no ``want_cache``). Returns logits
-    (B, S, V) in f32, the reference's first output, or under
-    ``return_hidden`` the final-norm hidden states (B, S, d), from which
-    the chunked loss computes its own head product. ``with_aux`` returns
-    (that, the MoE aux loss summed over layers, an f32 scalar; 0 for the
-    other families), as training reads it.
+    """Full-sequence causal forward of tokens (B, S), or of ``embeds``
+    (B, S, d) for a family without a token embedding (vlm, audio), taken
+    as they are (not cast to ``cfg.dtype``, as in the reference).
+    ``positions`` defaults to 0..S-1 on every row (and every M-RoPE
+    stream); it may be (B, S), or (3, B, S) under M-RoPE, and feeds the
+    learned or sinusoidal embedding (stream 0) and the rotary tables. The
+    attention is causal in sequence order whatever the positions, as the
+    reference's (the fused kernel is given 0..S-1), and hybrid's shared
+    block rotates by 0..S-1.
+
+    Returns logits (B, S, V) in f32, the reference's first output, or
+    under ``return_hidden`` the final-norm hidden states (B, S, d), from
+    which the chunked loss computes its own head product. ``with_aux``
+    returns (that, the MoE aux loss summed over layers, an f32 scalar; 0
+    for the other families), as training reads it; ``want_cache`` returns
+    (that, aux, the cache payload), as the reference's triple, for
+    ``cache_from_prefill``: post-RoPE (k, v) (L, B, S, KH, Dh) for the
+    attention families, the final (conv (L, B, W-1, C), state (L, B, H,
+    P, N)) for ssm, and for hybrid those plus its shared-block (k, v)
+    (napp, B, S, KH, 2d/H).
 
     Under ``cfg.remat``, where autograd records, each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward pass (the
@@ -800,10 +840,15 @@ def forward_seq(params, cfg: ModelConfig, *, tokens, return_hidden=False,
     way."""
     _check_family(cfg)
     impl = cfg.kernel_impl
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    h = _embed(params, cfg, tokens, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x = tokens if tokens is not None else embeds
+    B, S = x.shape[:2]
+    dev = x.device
+    seq_pos = torch.arange(S, device=dev)[None].expand(B, S)
+    if positions is None:
+        positions = seq_pos
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    h = _embed(params, cfg, tokens, pos2d, embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, x):
@@ -813,23 +858,96 @@ def forward_seq(params, cfg: ModelConfig, *, tokens, return_hidden=False,
         return fn(x)
 
     layers = _layers(params["layers"], cfg.n_layers)
+    payload = []
     if cfg.family in _RECURRENT:
-        emb0, apps = h, _shared_apps(cfg)
+        emb0, apps, shared = h, _shared_apps(cfg), []
         for li, lp in enumerate(layers):
-            h = run(lambda x, lp=lp: _ssm_layer(x, lp, cfg, impl)[0], h)
+            h, states = run(lambda x, lp=lp: _ssm_layer(x, lp, cfg, impl), h)
+            if want_cache:
+                payload.append(states)
             if li in apps:
-                h = _shared_block_seq(h, emb0, params["shared"], cfg,
-                                      positions, impl)
+                h, kv = _shared_block_seq(h, emb0, params["shared"], cfg,
+                                          seq_pos, impl)
+                if want_cache:
+                    shared.append(kv)
+        if want_cache:
+            caches = tuple(torch.stack(t) for t in zip(*payload))
+            if cfg.family == "hybrid":
+                caches += (tuple(torch.stack(t) for t in zip(*shared))
+                           if shared else None,)
     else:
         cos_sin = _rope(cfg, positions)
         for lp in layers:
-            h, a = run(functools.partial(_attn_layer_seq, lp=lp, cfg=cfg,
-                                         cos_sin=cos_sin, impl=impl), h)
+            h, a, kv = run(functools.partial(_attn_layer_seq, lp=lp, cfg=cfg,
+                                             cos_sin=cos_sin, impl=impl), h)
             if a is not None:
                 aux = aux + a
+            if want_cache:
+                payload.append(kv)
+        if want_cache:
+            caches = tuple(torch.stack(t) for t in zip(*payload))
     h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
     out = h if return_hidden else _logits(params, cfg, h, impl=impl)
+    if want_cache:
+        return out, aux, caches
     return (out, aux) if with_aux else out
+
+
+def cache_from_prefill(cfg: ModelConfig, caches, seq_len: int,
+                       cache_len=None, dtype=torch.bfloat16
+                       ) -> Dict[str, Any]:
+    """A decode cache from ``forward_seq(want_cache=True)``'s payload of
+    a ``seq_len``-token prefill, as the reference's: a ring of ``T =
+    cache_len`` (default ``attn_cache_len(cfg, seq_len)``) slots. With
+    S >= T the last T positions stay, rolled so that position p sits in
+    slot p % T; otherwise the ring is padded with empty (pos -1) slots.
+    Under ``cfg.kv_cache_quant`` the ring is int8 with per-row scales
+    (absmax over the head dim, as ``decode_step`` writes them). ssm keeps
+    its final conv (in ``dtype``) and f32 state; hybrid adds its
+    shared-block rings, which must hold the whole prefill. The tensors
+    lie on the payload's device."""
+    _check_family(cfg)
+    T = cache_len or attn_cache_len(cfg, seq_len)
+    if cfg.family == "ssm":
+        conv, state = caches
+        return {"conv": conv.to(dtype), "state": state}
+    if cfg.family == "hybrid":
+        conv, state, (k, v) = caches
+        S = k.shape[2]
+        if S > T:
+            raise ValueError(f"hybrid prefill of {S} positions is longer "
+                             f"than the cache ({T})")
+        k, v, pos = _ring_pad(k, v, T)
+        return {"conv": conv.to(dtype), "state": state, "k": k.to(dtype),
+                "v": v.to(dtype), "pos": pos}
+    k, v = caches                                       # (L, B, S, KH, Dh)
+    B, S = k.shape[1:3]
+    if S >= T:
+        # keep the last T positions; position p goes to slot p % T
+        shift = (S - T) % T
+        k = torch.roll(k[:, :, S - T:], shift, dims=2)
+        v = torch.roll(v[:, :, S - T:], shift, dims=2)
+        pos = torch.roll(torch.arange(S - T, S, dtype=torch.int32,
+                                      device=k.device), shift)
+        pos = pos[None].expand(B, T).contiguous()
+    else:
+        k, v, pos = _ring_pad(k, v, T)
+    if cfg.kv_cache_quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs, "pos": pos}
+    return {"k": k.to(dtype), "v": v.to(dtype), "pos": pos}
+
+
+def _ring_pad(k, v, T: int):
+    """(k, v) (n, B, S, KH, Dh) padded with zeros to T ring slots, and
+    ``pos`` (B, T): 0..S-1, then -1 for the empty slots."""
+    n, B, S = k.shape[:3]
+    pad = (0, 0, 0, 0, 0, T - S)
+    pos = torch.full((B, T), -1, dtype=torch.int32, device=k.device)
+    pos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
+    return (torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad), pos)
 
 
 # ---------------------------------------------------------------------------
@@ -894,10 +1012,10 @@ def _shared_out(h, u, o, sp, cfg: ModelConfig, impl):
 
 def _shared_block_seq(h, emb0, sp, cfg: ModelConfig, positions, impl):
     """Zamba2's shared attention block over (h ++ initial embedding),
-    causal over the whole sequence."""
+    causal over the whole sequence: (h, its post-RoPE (k, v))."""
     u, q, k, v = _shared_qkv(h, emb0, sp, cfg, positions, impl)
     o = _seq_attention(q, k, v, cfg, h.shape[1])
-    return _shared_out(h, u, o, sp, cfg, impl)
+    return _shared_out(h, u, o, sp, cfg, impl), (k, v)
 
 
 def _store_state(cache, li: int, conv, state, live) -> None:

@@ -265,6 +265,11 @@ class Engine:
             cfg, tp=serve_cfg.tp, drafter=serve_cfg.drafter is not None,
             prefix_cache=serve_cfg.prefix_cache)
         T._check_family(cfg)
+        if not cfg.embed_input:
+            raise ValueError(
+                f"{cfg.name} has a stub modality frontend: the engine serves "
+                "token ids, and this family takes embeddings (serve it "
+                "through training.steps.make_serve_steps)")
         self._state = DecodeState(cfg)
         self.cfg = cfg
         self.params = params

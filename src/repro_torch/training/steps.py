@@ -19,9 +19,15 @@ pass, so the (B, S, V) logits never exist at once.
 No kernel of the port is on this path, as in the reference: training
 runs float weights, so every product is a plain one. Attention must be
 ``naive`` or ``blockwise`` (``"auto"`` picks one): the fused kernel has no
-backward and ``forward_seq`` raises if asked to differentiate it. The
-reference's ``make_serve_steps`` is not ported: it needs
-``forward_seq(want_cache=True)``, which no path of the port runs.
+backward and ``forward_seq`` raises if asked to differentiate it.
+
+``make_serve_steps`` is the reference's serve path for the families that
+take embeddings (vlm, audio; any family takes tokens): a prefill through
+``forward_seq(want_cache=True)`` with the LM head on the last position
+only, and ``decode_step``; ``models.transformer.cache_from_prefill``
+turns the prefill's payload into the decode cache. With packed weights
+it runs the matmul kernel, and under ``attn_impl="fused"`` the prefill
+attention kernel.
 """
 from __future__ import annotations
 
@@ -103,12 +109,15 @@ def chunked_xent(h: torch.Tensor, head, labels: torch.Tensor, *,
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 1e-2):
     """loss_fn(params, batch) -> (loss, {"loss", "aux"}); batch holds
-    ``tokens`` and ``labels`` (B, S)."""
+    ``labels`` (B, S) and ``tokens`` (B, S) or ``embeds`` (B, S, d), and
+    may hold ``positions`` ((3, B, S) under M-RoPE)."""
     use_chunked = cfg.loss_chunk and cfg.vocab_size >= 8192
 
     def loss_fn(params, batch):
         compute = cast_params(params, torch_dtype(cfg.dtype))
-        out, aux = T.forward_seq(compute, cfg, tokens=batch["tokens"],
+        out, aux = T.forward_seq(compute, cfg, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
+                                 positions=batch.get("positions"),
                                  return_hidden=bool(use_chunked),
                                  with_aux=True)
         if use_chunked:
@@ -149,10 +158,13 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
         if microbatches <= 1:
             _, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
-            mb = next(iter(batch.values())).shape[0] // microbatches
+            mb = batch["labels"].shape[0] // microbatches
             accum, losses, auxes = None, [], []
             for i in range(microbatches):
-                sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                rows = slice(i * mb, (i + 1) * mb)
+                # M-RoPE positions (3, B, S) split on their batch axis
+                sub = {k: v[:, rows] if k == "positions" and v.dim() == 3
+                       else v[rows] for k, v in batch.items()}
                 _, m, g = value_and_grad(loss_fn, params, sub)
                 g = tree_map(lambda x: x.to(accum_dtype), g)
                 # the reference adds the first gradient to zeros: the same
@@ -176,6 +188,32 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
                     step=state["step"] + 1), metrics
 
     return train_step
+
+
+def make_serve_steps(cfg: ModelConfig):
+    """(prefill, decode), the reference's serve steps.
+
+    prefill(params, batch) -> (logits (B, V) f32 of the last position,
+    the ``forward_seq(want_cache=True)`` payload); batch holds ``tokens``
+    (B, S) or ``embeds`` (B, S, d), and may hold ``positions``. The head
+    runs on the last position only, so the (B, S, V) logits never exist.
+    decode(params, cache, batch) -> (logits (B, V) f32, the cache updated
+    in place); batch holds ``tokens`` (B,) or ``embeds`` (B, d), and
+    ``position`` (B,)."""
+    def prefill(params, batch):
+        h, _, caches = T.forward_seq(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions=batch.get("positions"),
+            want_cache=True, return_hidden=True)
+        # the head under the default impl, as the reference's ``_logits``
+        return T._logits(params, cfg, h[:, -1]), caches
+
+    def decode(params, cache, batch):
+        return T.decode_step(params, cfg, cache, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"),
+                             position=batch["position"])
+
+    return prefill, decode
 
 
 def init_train_state(cfg: ModelConfig, opt: adamw.AdamWConfig,

@@ -12,6 +12,11 @@ Tolerances, relative to the output's max magnitude:
     w to bf16 alike and accumulate in f32; only the summation order
     differs (the tensor cores' k16 steps, and the K split's partials
     summed in ascending order, against one f32 product a row).
+  * matmul, f32 output, against the exact (f64) product of the same bf16
+    operands on a 32-tile K chain in one split: 1e-6. Each tile's k16
+    steps sum in the tensor cores' accumulator, whose additions do not
+    round to nearest, and the tile sums in f32 adds that do; a chain of
+    every k16 step read 7.7e-6.
   * attention, f32 output: 5e-6 on visible rows, the reference's own
     tolerance for its kernel against the naive path (f32 accumulation
     order, the kernel's visible key tiles against the plain version's
@@ -54,6 +59,7 @@ torch.set_num_threads(2)
 TOL_F32 = 1e-5
 TOL_ATTN = 5e-6
 TOL_BF16 = 2.0 ** -7
+TOL_EXACT = 1e-6
 # (M, K, N): token tiles of one and eight 8-token groups, K split and not
 # (k_splits), and ragged column blocks (N a multiple of 16, not of 128)
 SHAPES = [(1, 256, 96), (3, 512, 320), (8, 768, 96), (33, 256, 320),
@@ -145,6 +151,24 @@ def test_kernel_split_k_shapes(cuda_device, variant, K, N):
         assert _rel_err(yb, rb) <= TOL_BF16, M
     for m in (0, 77, 127, 511):
         assert torch.equal(PB.bfp_matmul_cuda(x[m:m + 1], t)[0], yb[m]), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 512])
+def test_long_k_chain_within_rounding_of_the_exact_product(cuda_device, M):
+    """K = 8192 in one split (132 column tiles fill the card): the f32
+    output within ``TOL_EXACT`` of the f64 product of the same bf16 x and
+    bf16 dequantized weight, at decode M and at M = 512 (one block a
+    tile's splits)."""
+    K, N = 8192, 16896
+    assert PB.k_splits(K, N) == 1
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    t = PQ.quantize("q3_k", torch.randn(K, N, generator=g,
+                                        device=cuda_device) / K ** 0.5)
+    x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    y = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+    w = PQ.dequantize(t, dtype=torch.float32).bfloat16().double()
+    assert _rel_err(y.double(), x.double() @ w) <= TOL_EXACT
 
 
 def test_k_splits_takes_no_m():

@@ -5,17 +5,19 @@
 ``CAPS`` equals the reference's row by row, ``KV_FAMILIES`` and
 ``FEATURES`` too; ``validate_serve_features`` returns the same row or
 raises the reference's exact message for every family x feature cell, on
-each family's reference config moved over by value (the port has no
-vlm or audio config of its own yet). ``DecodeState`` asserts on a
-missing capability as the reference's does, and its checkpoint methods
-delegate to the model for the recurrent families. The engine runs the
-validation pass before anything else, so a recurrent family asking for
-speculation gets the reference's ValueError; the two unported families
-raise NotImplementedError naming ROADMAP queue 1 item 5, and the
-recurrent ones construct. ``--policy auto`` on a MoE, ssm or hybrid
-arch raises naming item 3.
+each family's reference config moved over by value. ``DecodeState``
+asserts on a missing capability as the reference's does, and its
+checkpoint methods delegate to the model for the recurrent families. The
+engine runs the validation pass before anything else, so a recurrent
+family asking for speculation gets the reference's ValueError; vlm and
+audio, which take embeddings, not token ids, raise a ValueError naming
+their stub frontend, and the recurrent ones construct. ``--policy auto``
+on a MoE, ssm or hybrid arch no longer raises: its load branch packs
+from a policy file (the search is held in
+``test_torch_policy_auto_families``).
 """
 import dataclasses
+import json
 import types
 
 import pytest
@@ -24,6 +26,7 @@ import torch
 from repro.configs.base import get_arch as j_get_arch
 from repro.models import state as JS
 from repro_torch.configs.base import ModelConfig, get_arch
+from repro_torch.core import qlinear as PL
 from repro_torch.launch import serve as LS
 from repro_torch.models import state as PS
 from repro_torch.models import transformer as PT
@@ -39,7 +42,7 @@ ARCH_FOR = {
     "ssm": "mamba2-2.7b",
     "hybrid": "zamba2-1.2b",
 }
-UNPORTED = ("vlm", "audio")
+EMBEDDING_INPUT = ("vlm", "audio")
 RECURRENT = ("ssm", "hybrid")
 FEATURE_KW = {
     "tensor-parallel serving": dict(tp=2),
@@ -145,18 +148,20 @@ def test_decode_state_delegates_to_the_model():
     assert st.page_bytes(4) == PT.cache_page_bytes(cfg, 4)
 
 
-@pytest.mark.parametrize("family", UNPORTED + RECURRENT)
+@pytest.mark.parametrize("family", EMBEDDING_INPUT + RECURRENT)
 def test_engine_rejects_unported_families(family):
-    """vlm and audio raise naming ROADMAP queue 1 item 5; the recurrent
-    families construct, with their capability row, a chunk clamped to a
-    divisor of the ring and the page pinned to it."""
+    """vlm and audio, whose params have no token embedding, raise a
+    ValueError naming their stub frontend (the model itself is ported:
+    ``init_params`` makes its tree); the recurrent families construct,
+    with their capability row, a chunk clamped to a divisor of the ring
+    and the page pinned to it."""
     _, cfg = _pair(family)
-    if family in UNPORTED:
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            Engine(cfg, {}, ServeConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            PT.init_params(cfg, torch.Generator().manual_seed(0),
-                           device="cpu")
+    if family in EMBEDDING_INPUT:
+        params = PT.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        assert "wte" not in params
+        with pytest.raises(ValueError, match="stub modality frontend"):
+            Engine(cfg, params, ServeConfig(), device="cpu")
         return
     params = PT.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
@@ -178,10 +183,20 @@ def test_engine_validates_features_first():
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
                                   "mamba2-2.7b", "zamba2-1.2b"])
-def test_policy_auto_on_moe_raises(arch):
+def test_policy_auto_on_moe_raises(arch, tmp_path):
+    """The refusal is gone: ``resolve_policy``'s load branch returns the
+    file's policy for every arch (no calibration without a q3_k_o rule),
+    and it packs."""
     cfg = get_arch(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        LS.resolve_policy(cfg, {}, policy="auto", arch=arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        LS.main(["--arch", arch, "--reduced", "--device", "cpu",
-                 "--policy", "auto", "--requests", "1"])
+    path = tmp_path / "mix.json"
+    path.write_text(json.dumps({"name": "mix", "default": "q3_k",
+                                "rules": [["*lm_head*", "q2_k"]]}))
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    pol, calib, info = LS.resolve_policy(cfg, params, policy="auto",
+                                         arch=arch, policy_json=str(path),
+                                         device="cpu")
+    assert pol.rules == (("*lm_head*", "q2_k"),) and pol.default == "q3_k"
+    assert calib is None and info is None
+    _, report = PL.quantize_params(params, pol)
+    assert report["lm_head"] == "q2_k"
