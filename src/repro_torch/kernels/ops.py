@@ -1,7 +1,9 @@
 """Public kernel entry points (counterpart of ``repro.kernels.ops``): the
-fused BFP matmul, the Q8_K activation quantization, and the ring and page
-copies of speculative decoding and the prefix cache (plain torch
-indexing, as the reference's are plain XLA gathers and scatters).
+fused BFP matmul, the Q8_K activation quantization, the tensor-parallel
+lane and row primitives (``tp_*``: the gather, embed and slice of a
+rank's lanes, and the f32 partial of a row-parallel projection), and the
+ring and page copies of speculative decoding and the prefix cache (plain
+torch indexing, as the reference's are plain XLA gathers and scatters).
 
 ``impl`` selects the datapath:
   * "cuda"  -- the hand-written kernel (``csrc/bfp_matmul.cu``); the
@@ -23,7 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import QTensor
+from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bfp_matmul import bfp_matmul_cuda, bfp_matmul_plain
 from repro_torch.kernels.q8k_quant import (q8k_quantize_cuda,
@@ -50,6 +53,99 @@ def bfp_matmul(x: torch.Tensor, t: QTensor, *, impl: str = "auto",
     else:
         raise ValueError(f"unknown impl {impl!r}; known: cuda, torch, ref, "
                          "auto")
+    return out.reshape(*lead, t.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (inside one rank, under sharding.serve_tp)
+# ---------------------------------------------------------------------------
+
+def _active_plan():
+    plan = SH.serve_tp_plan()
+    return None if plan is None or plan.size == 1 else plan
+
+
+def tp_gather_lanes(y: torch.Tensor) -> torch.Tensor:
+    """Assemble a tensor-parallel lane slice into the full, replicated
+    output with one collective: every rank's (..., N/size) block in rank
+    order, a tiled all-gather (pure data movement, exact). Identity when
+    no plan of size > 1 is active."""
+    if _active_plan() is None:
+        return y
+    return SH.serve_tp_group().all_gather(y, dim=y.dim() - 1)
+
+
+def tp_embed_lanes(w):
+    """Zero-embed this rank's lane slice of a weight into its full-width
+    shape (the "padded" datapath): the projection then runs at the
+    single-device product shape, so this rank's columns get the
+    single-device bits and the others multiply exact zeros (a zero payload
+    lane dequantizes to +-0.0 in every format). The stored weight stays
+    sharded; only this transient view is full width. Plain tensors and
+    packed QTensors alike."""
+    plan = _active_plan()
+    if plan is None:
+        return w
+    i = SH.serve_tp_rank()
+
+    def emb(a):
+        n = a.shape[-1]
+        buf = torch.zeros(a.shape[:-1] + (n * plan.size,), dtype=a.dtype,
+                          device=a.device)
+        buf[..., i * n:(i + 1) * n] = a
+        return buf
+
+    if isinstance(w, QTensor):
+        K, n = w.shape
+        return QTensor(w.variant, (K, n * plan.size),
+                       {k: emb(v) for k, v in w.data.items()})
+    return emb(w)
+
+
+def tp_local_lanes(y: torch.Tensor) -> torch.Tensor:
+    """This rank's lane block of a full-width activation (the inverse of
+    ``tp_gather_lanes``: drops the off-shard zero columns a
+    ``tp_embed_lanes`` product made)."""
+    plan = _active_plan()
+    if plan is None:
+        return y
+    n = y.shape[-1] // plan.size
+    i = SH.serve_tp_rank()
+    return y[..., i * n:(i + 1) * n]
+
+
+def tp_row_local_matmul(x: torch.Tensor, t: QTensor, mode: str, *,
+                        impl: str = "auto",
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """This rank's partial-K product of a row-parallel o-/down-proj, in
+    f32. ``x`` is the rank's (..., K/size) slice of the input (its own
+    head outputs or ffn lanes).
+
+    ``mode``:
+      "packed"  -- ``t`` is this rank's K-row slice (whole super-blocks,
+        (K, N) localized): the dequant-matmul with f32 output (the CUDA
+        kernel on the card).
+      "dequant" -- ``t`` is the whole replicated packed tensor (K does not
+        split into whole super-blocks): dequantize it and take the K rows
+        of this rank's input slice; the product is a plain one.
+
+    The partial is f32 so the caller's all-reduce sums at f32 width and
+    the result rounds to the activation dtype once, after the sum."""
+    lead = x.shape[:-1]
+    kl = x.shape[-1]
+    x2 = x.reshape(-1, kl)
+    if mode == "packed":
+        out = bfp_matmul(x2, t, impl=impl, compute_dtype=compute_dtype,
+                         out_dtype=torch.float32)
+        return out.reshape(*lead, t.shape[1])
+    if mode != "dequant":
+        raise ValueError(f"unknown row mode {mode!r}; known: packed, "
+                         "dequant")
+    w = dequantize(t, dtype=compute_dtype)
+    if _active_plan() is not None:
+        i = SH.serve_tp_rank()
+        w = w[i * kl:(i + 1) * kl]
+    out = x2.to(compute_dtype).to(torch.float32) @ w.to(torch.float32)
     return out.reshape(*lead, t.shape[1])
 
 

@@ -28,9 +28,18 @@ queue of requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --policy paper_llama_mix --http --port 8000 --request-timeout 60
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --policy paper_llama_mix --tp 2 --tp-matmul sliced
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --prompt-len 384 --prefill-chunk 128 --cache-len 1024 --tokens 32 \
       --prefix-cache --shared-prefix 384 --prefix-bytes 1073741824
+
+``--tp N`` serves on N ranks, one process each (rank r on cuda:r, so
+N cards; ``--force-host-devices N`` runs them on the CPU instead), with
+``--tp-matmul`` padded|sliced|sliced_row and ``--no-tp-ep``; ssm and
+hybrid archs and ``--disagg`` refuse it. The engine prints its backend:
+NCCL with a card a rank, gloo on the host.
 
 ``--policy auto`` loads the searched policy file ``--policy-json`` if it
 exists (recalibrating first when a rule asks for q3_k_o, whose outlier
@@ -228,11 +237,48 @@ def main(argv=None):
     ap.add_argument("--request-timeout", type=float, default=120.0,
                     help="--http default per-request wall ceiling in "
                          "seconds (a request's timeout_s overrides it)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: this many ranks, one "
+                         "process each (lane-only sharding; greedy output "
+                         "stays --tp 1's under --tp-matmul padded). On the "
+                         "card rank r takes cuda:r: it needs --tp cards")
+    ap.add_argument("--tp-matmul", default="padded",
+                    choices=("padded", "sliced", "sliced_row"),
+                    help="TP projection datapath: 'padded' keeps the "
+                         "single-device product shape on every rank (tp=1's "
+                         "bits; weights and KV still sharded), 'sliced' "
+                         "runs the lane-sliced products (1/tp of the work "
+                         "a rank, within an f32 ulp), 'sliced_row' adds "
+                         "row-parallel o-/down-projections (half the "
+                         "collectives a layer; within a few activation-"
+                         "dtype ulps)")
+    ap.add_argument("--no-tp-ep", dest="tp_ep", action="store_false",
+                    help="no expert parallelism under --tp for MoE archs "
+                         "(by default expert stacks shard over the ranks "
+                         "when n_experts divides --tp; the tokens are the "
+                         "same either way)")
+    ap.add_argument("--force-host-devices", type=int, default=None,
+                    help="serve on this many host (CPU) ranks: the CPU "
+                         "stand-in for --tp cards (also read from "
+                         "REPRO_FORCE_HOST_DEVICES); --device cuda with it "
+                         "is an error")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    host = args.force_host_devices
+    if host is None and os.environ.get("REPRO_FORCE_HOST_DEVICES"):
+        host = int(os.environ["REPRO_FORCE_HOST_DEVICES"])
+    if host is not None:
+        if args.device not in (None, "cpu"):
+            raise SystemExit(f"--force-host-devices {host} runs the ranks on "
+                             f"the host; it cannot serve on --device "
+                             f"{args.device}")
+        if args.tp > host:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} ranks but "
+                             f"--force-host-devices gives {host}")
+        args.device = "cpu"
+    dev = resolve_device(args.device or "cuda")
     cfg = get_arch(args.arch, reduced=args.reduced)
     if not cfg.embed_input:
         raise SystemExit(f"{args.arch} has a stub modality frontend; "
@@ -274,7 +320,12 @@ def main(argv=None):
                        prefix_cache=args.prefix_cache,
                        prefix_page=args.prefix_page,
                        prefix_bytes=args.prefix_bytes,
-                       max_queue=args.max_queue, preempt=args.preempt)
+                       max_queue=args.max_queue, preempt=args.preempt,
+                       tp=args.tp, tp_matmul=args.tp_matmul, tp_ep=args.tp_ep)
+    if args.tp > 1:
+        print(f"tensor-parallel: tp={args.tp} ({args.tp_matmul} matmul, "
+              f"expert parallelism {'on' if args.tp_ep else 'off'}) on "
+              f"{dev.type}")
     if args.disagg:
         print(f"disaggregated: {args.prefill_workers} prefill + "
               f"{args.decode_workers} decode worker(s), KV-aware router")
@@ -286,10 +337,13 @@ def main(argv=None):
         engine = Engine(cfg, qp, scfg, device=dev)
     if args.http:
         from repro_torch.serving.frontend import FrontendConfig, serve_forever
-        serve_forever(engine, FrontendConfig(
-            host=args.host, port=args.port, model_name=args.arch,
-            request_timeout_s=args.request_timeout,
-            max_tokens_default=args.tokens))
+        try:
+            serve_forever(engine, FrontendConfig(
+                host=args.host, port=args.port, model_name=args.arch,
+                request_timeout_s=args.request_timeout,
+                max_tokens_default=args.tokens))
+        finally:
+            _close(engine)
         return engine, {}
     on_token = None
     if args.stream:
@@ -326,7 +380,15 @@ def main(argv=None):
           f"{s['tok_per_s']:.1f} tok/s ({s['tokens']} tokens, "
           f"{s['host_syncs']} host syncs / {s['requests']} requests, "
           f"{s['chunks']} chunks{spec}{prefix}{disagg}) on {dev}")
+    _close(engine)
     return engine, results
+
+
+def _close(engine) -> None:
+    """Stop a tensor-parallel engine's worker ranks."""
+    close = getattr(engine, "close", None)
+    if close is not None:
+        close()
 
 
 if __name__ == "__main__":

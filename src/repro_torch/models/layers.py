@@ -16,6 +16,11 @@ prefill chunk with ``impl="fused"``, the fused flash-style kernel
 ``kernels.prefill_attn.prefill_attn_fused`` (the CUDA kernel on the card,
 its plain version on the CPU). ``verify_attention`` replays
 ``decode_attention`` column by column for a speculative draft block.
+
+Under an active serve-TP plan (``distributed.sharding.serve_tp``) the
+``tp_*`` projections run this rank's share of a projection and its
+collectives (the reference's ``tp_lane_dense``, ``tp_ring_dense`` and
+``tp_row_dense``), and the MLPs shard the ffn hidden.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.core import calibrate as CAL
-from repro_torch.core.quantize import QTensor
+from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.distributed.sharding import (serve_tp_group, serve_tp_plan,
+                                              serve_tp_rank)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.prefill_attn import prefill_attn_fused
 
@@ -315,10 +322,117 @@ def decode_attention(q, k_cache, v_cache, slot_pos, q_pos, *,
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel projections (inside one rank, under sharding.serve_tp)
+# ---------------------------------------------------------------------------
+
+def _tp_mlp_active() -> bool:
+    """Serve-TP lane sharding of the ffn block."""
+    plan = serve_tp_plan()
+    return plan is not None and plan.size > 1 and plan.mlp
+
+
+def tp_lane_dense(x, w, out: str, *, impl="auto"):
+    """Serve-TP projection against a lane-sharded weight (``w`` is this
+    rank's (K, N/size) lane slice; K rows whole, so every output column is
+    a full-K product).
+
+    ``out="local"``: this rank's lane block, no collective (q/k/v: the
+    block is this rank's heads; gate/up/fc: the ffn hidden stays sharded
+    through the activation). ``out="full"``: the replicated output by one
+    all-gather (o-proj and down-proj, whose consumers need it whole).
+
+    Datapath per ``ServeTPPlan.matmul``: "padded" zero-embeds the slice
+    and runs the single-device product shape (the same column bits as
+    tp=1); "sliced" runs the lane-sliced product (1/size of the work and
+    of the packed weight traffic, within an f32 ulp)."""
+    plan = serve_tp_plan()
+    if plan is None or plan.size == 1:
+        return dense(x, w, impl=impl)
+    if plan.matmul == "padded":
+        y = kops.tp_local_lanes(dense(x, kops.tp_embed_lanes(w), impl=impl))
+    else:
+        y = dense(x, w, impl=impl)
+    return y if out == "local" else kops.tp_gather_lanes(y)
+
+
+def tp_ring_dense(x, w, *, impl="auto"):
+    """Ring collective-matmul: a full-output projection whose input lives
+    lane-sharded (``x`` is this rank's K chunk) and whose weight does too
+    (``w`` is (K, N/size)), computed without gathering the input. Each of
+    the ``size`` steps multiplies the chunk in hand by its K rows of the
+    local weight while ``ring_shift`` (``dist.batch_isend_irecv``, the
+    reference's ``ppermute``) forwards the chunk one hop; then one
+    all-gather assembles the lanes. K accumulates in an f32 carry and
+    rounds once. A packed weight dequantizes its local lane slice once,
+    outside the loop, so the per-step K rows need no super-block
+    alignment."""
+    plan = serve_tp_plan()
+    if plan is None or plan.size == 1:
+        return dense(x, w, impl=impl)
+    size, i = plan.size, serve_tp_rank()
+    group = serve_tp_group()
+    kl = x.shape[-1]
+    # the products take the chunk in the weight's compute dtype (bf16 for
+    # a packed weight) and accumulate in f32
+    wdt = torch.bfloat16 if isinstance(w, QTensor) else x.dtype
+    wf = (dequantize(w, dtype=wdt) if isinstance(w, QTensor)
+          else w.to(wdt)).to(torch.float32)
+    chunk, acc = x, None
+    for s in range(size):
+        # the chunk in hand at step s started at rank (i - s): its K offset
+        j = (i - s) % size
+        part = chunk.to(wdt).to(torch.float32) @ wf[j * kl:(j + 1) * kl]
+        acc = part if acc is None else acc + part
+        if s + 1 < size:
+            chunk = group.ring_shift(chunk)
+    return kops.tp_gather_lanes(acc.to(x.dtype))
+
+
+def tp_row_dense(x, w, mode: str, *, impl="auto"):
+    """Serve-TP row-parallel projection ("sliced_row"): ``x`` is this
+    rank's K slice of the input (its own head outputs, or ffn lanes), fed
+    straight into a partial-K product; one all-reduce assembles the
+    replicated output (Megatron's column/row pairing: one collective where
+    the lane dataflow has two).
+
+    ``mode`` (``ServeTPPlan.attn_row``/``mlp_row``): "packed" -- ``w`` is
+    this rank's K-row slice; "dequant" -- ``w`` is the whole replicated
+    packed tensor (``kops.tp_row_local_matmul``). A plain weight is always
+    this rank's (K/size, N) rows. Partials are f32 and the sum rounds to
+    the activation dtype once, so the only difference from the lane
+    dataflow is the order of the K reduction across ranks."""
+    plan = serve_tp_plan()
+    if plan is None or plan.size == 1:
+        return dense(x, w, impl=impl)
+    if isinstance(w, QTensor):
+        y = kops.tp_row_local_matmul(x, w, mode, impl=impl)
+    else:
+        y = x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+    return serve_tp_group().all_reduce(y).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
+def _tp_down(h, w, *, impl):
+    """The down-projection of a lane-sharded ffn hidden ``h``: row-parallel
+    under a row mode, the ring matmul under "sliced_row" without one,
+    else gather the hidden and project its lanes."""
+    plan = serve_tp_plan()
+    if plan.mlp_row:
+        return tp_row_dense(h, w, plan.mlp_row, impl=impl)
+    if plan.matmul == "sliced_row":
+        return tp_ring_dense(h, w, impl=impl)
+    return tp_lane_dense(kops.tp_gather_lanes(h), w, "full", impl=impl)
+
+
 def swiglu_mlp(x, p: Dict, *, impl="auto"):
+    if _tp_mlp_active():
+        # gate/up give this rank's ffn lanes and the activation stays local
+        g = tp_lane_dense(x, p["w_gate"], "local", impl=impl)
+        u = tp_lane_dense(x, p["w_up"], "local", impl=impl)
+        return _tp_down(Fn.silu(g) * u, p["w_down"], impl=impl)
     CAL.tap(("mlp/w_gate", "mlp/w_up"), x)
     g = dense(x, p["w_gate"], impl=impl)
     u = dense(x, p["w_up"], impl=impl)
@@ -328,8 +442,17 @@ def swiglu_mlp(x, p: Dict, *, impl="auto"):
 
 
 def gelu_mlp(x, p: Dict, *, impl="auto"):
-    """gpt2's MLP: c_fc, + b_fc, tanh-approximate GELU, c_proj, + b_proj
-    (the reference's single-device branch)."""
+    """gpt2's MLP: c_fc, + b_fc, tanh-approximate GELU, c_proj, + b_proj.
+    Under serve TP ``b_fc`` is lane-sharded with ``c_fc`` (its add stays
+    local) and ``b_proj`` adds after the output is assembled."""
+    if _tp_mlp_active():
+        h = tp_lane_dense(x, p["c_fc"], "local", impl=impl)
+        if "b_fc" in p:
+            h = h + p["b_fc"].to(h.dtype)
+        o = _tp_down(Fn.gelu(h, approximate="tanh"), p["c_proj"], impl=impl)
+        if "b_proj" in p:
+            o = o + p["b_proj"].to(o.dtype)
+        return o
     CAL.tap("mlp/c_fc", x)
     h = dense(x, p["c_fc"], impl=impl)
     if "b_fc" in p:

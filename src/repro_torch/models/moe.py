@@ -1,7 +1,8 @@
 """Top-k capacity-based MoE (GShard-style), dispatched per batch row.
 
-Counterpart of ``repro.models.moe`` on one device (the reference's
-expert-parallel branch waits for the port's tensor parallelism). Each
+Counterpart of ``repro.models.moe``, with its expert-parallel branch
+(under a serve-TP plan with ``moe_ep``, each rank runs the products of
+its own E/size experts and one all-gather assembles the buffers). Each
 batch row routes its own S tokens into a ``(E, C, d)`` dispatch buffer
 with per-row capacity ``C``; token choices ranked at or past ``C`` in
 their expert are dropped, as GShard does, and the switch-style aux
@@ -31,15 +32,34 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.core import calibrate as CAL
+from repro_torch.core.formats import get_format
 from repro_torch.core.quantize import QTensor, dequantize
+from repro_torch.distributed.sharding import (serve_tp_group, serve_tp_plan,
+                                              serve_tp_rank)
 
 
-def expert_weights(w, E: int) -> torch.Tensor:
-    """(E, K, N) in bf16 from either a plain stack or an E*K-packed
-    QTensor."""
+def expert_weights(w, E: int, lo: int = 0, n: int = 0) -> torch.Tensor:
+    """(n, K, N) in bf16, experts [lo, lo + n) of E (all E where ``n`` is
+    0), from either a plain stack or an E*K-packed QTensor. A plain stack
+    that holds fewer than E experts is already this rank's share (expert
+    parallelism) and is returned whole. A packed stack whose K is a whole
+    number of super-blocks is cut to those experts' rows before it is
+    dequantized (dequantization is per super-block, so the values are the
+    bits of cutting after)."""
+    n = n or E
     if isinstance(w, QTensor):
         EK, N = w.shape
-        return dequantize(w, dtype=torch.bfloat16).reshape(E, EK // E, N)
+        K = EK // E
+        if n < E and K % get_format(w.variant).super_block == 0:
+            w = QTensor(w.variant, (n * K, N),
+                        {k: v.narrow(-2, lo * (v.shape[-2] // E),
+                                     n * (v.shape[-2] // E))
+                         for k, v in w.data.items()})
+            return dequantize(w, dtype=torch.bfloat16).reshape(n, K, N)
+        full = dequantize(w, dtype=torch.bfloat16).reshape(E, K, N)
+        return full[lo:lo + n]
+    if w.shape[0] == E:
+        w = w[lo:lo + n]
     return w.to(torch.bfloat16)
 
 
@@ -101,20 +121,33 @@ def moe_block(x: torch.Tensor, p: Dict, cfg) -> Tuple[torch.Tensor,
     bufs = torch.zeros((B, E, C, d), dtype=x.dtype, device=x.device)
     bufs.index_put_((bidx, e_flat, slot), contrib, accumulate=True)
 
-    wg = expert_weights(p["w_gate"], E)                     # (E, d, fe)
-    wu = expert_weights(p["w_up"], E)
-    CAL.tap(("moe/w_gate", "moe/w_up"), bufs)
+    # serving-side expert parallelism (ServeTPPlan.moe_ep): routing,
+    # dispatch and combine run replicated on all E experts, each rank's
+    # products cover its own E/size experts, and one tiled all-gather of
+    # the output buffers (pure data movement) assembles all E
+    plan = serve_tp_plan()
+    ep = (plan is not None and plan.moe_ep and plan.size > 1
+          and E % plan.size == 0)
+    El = E // plan.size if ep else E
+    lo = serve_tp_rank() * El if ep else 0
+    bufs_c = bufs[:, lo:lo + El]
+
+    wg = expert_weights(p["w_gate"], E, lo, El)             # (El, d, fe)
+    wu = expert_weights(p["w_up"], E, lo, El)
+    CAL.tap(("moe/w_gate", "moe/w_up"), bufs_c)
     hidden = []
     for b in range(B):
-        xb = bufs[b].to(torch.bfloat16)
+        xb = bufs_c[b].to(torch.bfloat16)
         hg = torch.bmm(xb, wg)
         hu = torch.bmm(xb, wu)
         hidden.append(_silu_bf16(hg) * hu)
     del wg, wu
-    hidden = torch.stack(hidden)                            # (B, E, C, fe)
+    hidden = torch.stack(hidden)                            # (B, El, C, fe)
     CAL.tap("moe/w_down", hidden)
-    wd = expert_weights(p["w_down"], E)
+    wd = expert_weights(p["w_down"], E, lo, El)
     out_buf = torch.stack([torch.bmm(hidden[b], wd) for b in range(B)])
+    if ep:
+        out_buf = serve_tp_group().all_gather(out_buf, dim=1)
 
     vals = out_buf[bidx, e_flat, slot].to(torch.float32)    # (B, S*k, d)
     vals = (vals * (keep * g_flat)[..., None]).reshape(B, S, k, d)

@@ -54,6 +54,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import calibrate as CAL
 from repro_torch.core.quantize import QTensor, _div, _safe_inv
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -249,15 +250,29 @@ def _logits(params, cfg: ModelConfig, h, impl="auto"):
     return L.dense(h, params["lm_head"], impl=impl).to(torch.float32)
 
 
+def _tp_attn_shards(cfg: ModelConfig) -> int:
+    """Serve-TP shard count over attention heads (1 when inactive)."""
+    plan = SH.serve_tp_plan()
+    return plan.size if (plan is not None and plan.attn) else 1
+
+
 def _qkv(a_in, lp, cfg: ModelConfig, impl):
     B, S, _ = a_in.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    # serve TP: wq/wk/wv are lane-sharded, so this rank's projection block
+    # is its contiguous run of whole heads (no collective); the KV cache
+    # holds the same kv heads and attention runs on the local counts
+    s = _tp_attn_shards(cfg)
+    H, KH = H // s, KH // s
     attn = lp["attn"]
     if cfg.fused_qkv:
         CAL.tap("attn/c_attn", a_in)
         qkv = L.dense(a_in, attn["c_attn"], impl=impl)
         qkv = qkv + attn["b_attn"].to(qkv.dtype)
         q, k, v = torch.chunk(qkv, 3, dim=-1)
+    elif s > 1:
+        q, k, v = (L.tp_lane_dense(a_in, attn[w], "local", impl=impl)
+                   for w in ("wq", "wk", "wv"))
     else:
         CAL.tap(("attn/wq", "attn/wk", "attn/wv"), a_in)
         q = L.dense(a_in, attn["wq"], impl=impl)
@@ -273,14 +288,55 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
 
 def _attn_out(o, lp, cfg, impl):
     B, S = o.shape[:2]
-    o = o.reshape(B, S, o.shape[2] * o.shape[3])
+    o = o.reshape(B, S, o.shape[2] * o.shape[3])    # local heads * Dh
     attn = lp["attn"]
+    if _tp_attn_shards(cfg) > 1:
+        plan = SH.serve_tp_plan()
+        if plan.attn_row:
+            # this rank's heads are a contiguous K-row slice of wo: a
+            # partial product and one all-reduce
+            return L.tp_row_dense(o, attn["wo"], plan.attn_row, impl=impl)
+        if plan.matmul == "sliced_row":
+            # no row layout for wo: the ring matmul
+            return L.tp_ring_dense(o, attn["wo"], impl=impl)
+        # lane path: gather the head outputs, then wo's d_model lanes
+        return L.tp_lane_dense(kops.tp_gather_lanes(o), attn["wo"], "full",
+                               impl=impl)
     if cfg.fused_qkv:
         CAL.tap("attn/c_proj", o)
         out = L.dense(o, attn["c_proj"], impl=impl)
         return out + attn["b_proj"].to(out.dtype)
     CAL.tap("attn/wo", o)
     return L.dense(o, attn["wo"], impl=impl)
+
+
+def _full_heads(cfg: ModelConfig, fn, q, *kv, **kw):
+    """``fn(q, *kv, **kw)``, a plain attention (naive, blockwise, decode,
+    verify), at the single-device head counts under serve TP: this rank's
+    q heads and the kv heads among ``kv`` (tensors of 4 dims, heads at
+    dim 2) are zero-embedded into all H and KH heads, and this rank's
+    heads of the output are returned. Its products batch over the heads,
+    and the BLAS picks their kernel, and so their bits, by that count: on
+    the CPU a decode over one kv head (a tp=4 rank of a 4-kv-head model)
+    rounded otherwise than the same head among four. At the full counts
+    every product keeps tp=1's shape, as the "padded" matmul does (the
+    attention work is replicated; the KV ring stays sharded). The fused
+    kernel runs each head alone and takes the local heads as they are."""
+    s = _tp_attn_shards(cfg)
+    if s == 1:
+        return fn(q, *kv, **kw)
+    i = SH.serve_tp_rank()
+
+    def embed(t):
+        if t.dim() != 4:
+            return t
+        n = t.shape[2]
+        full = t.new_zeros(t.shape[:2] + (n * s,) + t.shape[3:])
+        full[:, :, i * n:(i + 1) * n] = t
+        return full
+    h = q.shape[2]
+    o = fn(embed(q), *(embed(t) for t in kv), **kw)
+    return o[:, :, i * h:(i + 1) * h]
 
 
 def _apply_rope(q, k, cos_sin):
@@ -314,13 +370,17 @@ def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def init_cache(cfg: ModelConfig, B: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """Zero/empty decode cache sized for contexts up to ``seq_len``; an
-    int8 ring under ``cfg.kv_cache_quant``."""
+    int8 ring under ``cfg.kv_cache_quant``. Under a serve-TP plan that
+    shards attention the KV payloads hold this rank's kv heads (axis 3,
+    ``sharding.serve_cache_specs``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     T = attn_cache_len(cfg, seq_len)
     if cfg.family in _RECURRENT:
         return _recurrent_cache(cfg, B, T, dtype, dev)
-    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.d_head)
+    # under serve TP the ring holds this rank's kv heads only
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads // _tp_attn_shards(cfg),
+             cfg.d_head)
     kdt = torch.int8 if cfg.kv_cache_quant else dtype
     cache = {"k": torch.zeros(shape, dtype=kdt, device=dev),
              "v": torch.zeros(shape, dtype=kdt, device=dev)}
@@ -483,7 +543,9 @@ def cache_page_pool(cfg: ModelConfig, n_pages: int, page: int,
     scales under kv_cache_quant), so page copies are bit for bit.
     Recurrent families add per-page checkpoints ``conv`` (L, n_pages,
     W-1, C) and ``state`` (L, n_pages, H, P, N): the state after the
-    page's last token, indexed by page like a batch row."""
+    page's last token, indexed by page like a batch row. Under a serve-TP
+    plan that shards attention the pool holds this rank's kv heads, as
+    the ring does."""
     tmpl = init_cache(cfg, n_pages, page, dtype=dtype, device=device)
     return {k: tmpl[k] for k in cache_page_keys(cfg)}
 
@@ -574,9 +636,9 @@ def _attn_layer_decode(h, lp, ring, slot_pos, position, slot, cfg,
     store, _ = _ring_entries(ring, k[:, 0], v[:, 0])
     _ring_store(ring, store, bidx, slot, live)  # in place: one row a slot
     k_eff, v_eff = _ring_values(ring)
-    o = L.decode_attention(q, k_eff, v_eff, slot_pos, position,
-                           window=cfg.sliding_window,
-                           softcap=cfg.attn_logit_softcap)
+    o = _full_heads(cfg, L.decode_attention, q, k_eff, v_eff, slot_pos,
+                    position, window=cfg.sliding_window,
+                    softcap=cfg.attn_logit_softcap)
     h = h + _attn_out(o, lp, cfg, impl)
     m_in = L.norm(h, lp["ln2"], cfg.norm_type, cfg.norm_eps)
     return h + _mlp(m_in, lp, cfg, impl)[0]
@@ -664,9 +726,10 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     if cfg.family in _RECURRENT:
         return _recurrent_chunk(params, cfg, cache, tokens, positions, valid)
     attn_impl = "fused" if cfg.attn_impl == "fused" else "naive"
-    return _masked_chunk(params, cfg, cache, tokens, positions, valid,
-                         functools.partial(L.prefill_attention,
-                                           impl=attn_impl))
+    attn = functools.partial(L.prefill_attention, impl=attn_impl)
+    if attn_impl == "naive":
+        attn = functools.partial(_full_heads, cfg, attn)
+    return _masked_chunk(params, cfg, cache, tokens, positions, valid, attn)
 
 
 def verify_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
@@ -680,7 +743,8 @@ def verify_chunk(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     hidden (B, C, d), cache updated in place)."""
     _check_family(cfg)
     return _masked_chunk(params, cfg, cache, tokens, positions, valid,
-                         L.verify_attention)
+                         functools.partial(_full_heads, cfg,
+                                           L.verify_attention))
 
 
 def verify_scan(params, cfg: ModelConfig, cache: Dict[str, Any], *,
@@ -756,9 +820,9 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
     if impl == "auto":
         impl = "naive" if S <= NAIVE_MAX_SEQ else "blockwise"
     if impl == "naive":
-        return L.naive_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window,
-                                 softcap=cfg.attn_logit_softcap)
+        return _full_heads(cfg, L.naive_attention, q, k, v, causal=True,
+                           window=cfg.sliding_window,
+                           softcap=cfg.attn_logit_softcap)
     if impl == "fused":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -774,11 +838,11 @@ def _seq_attention(q, k, v, cfg: ModelConfig, S: int):
                                     window=cfg.sliding_window,
                                     softcap=cfg.attn_logit_softcap)
     if impl == "blockwise":
-        return L.blockwise_attention(q, k, v, causal=True,
-                                     window=cfg.sliding_window,
-                                     softcap=cfg.attn_logit_softcap,
-                                     q_chunk=cfg.attn_q_chunk,
-                                     kv_chunk=cfg.attn_kv_chunk)
+        return _full_heads(cfg, L.blockwise_attention, q, k, v, causal=True,
+                           window=cfg.sliding_window,
+                           softcap=cfg.attn_logit_softcap,
+                           q_chunk=cfg.attn_q_chunk,
+                           kv_chunk=cfg.attn_kv_chunk)
     raise ValueError(f"unknown attention impl {impl!r}; known: naive, "
                      "blockwise, fused, auto")
 

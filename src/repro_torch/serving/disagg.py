@@ -72,6 +72,13 @@ class DisaggEngine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  prefill_workers: int = 1, decode_workers: int = 1,
                  device="cuda"):
+        if serve_cfg.tp > 1:
+            raise NotImplementedError(
+                f"DisaggEngine over tp={serve_cfg.tp} engines is not ported "
+                "(ROADMAP queue 1 item 11): each tier worker would be a "
+                "group of ranks, and the page hand-off would gather and "
+                "split kv heads between groups; serve disaggregated at "
+                "tp=1, or monolithic with Engine at tp > 1")
         self.device = resolve_device(device)
         if prefill_workers < 1 or decode_workers < 1:
             raise ValueError(

@@ -1,10 +1,10 @@
 """Continuous-batching serving engine with batched chunked prefill.
 
 Counterpart of ``repro.serving.engine``: greedy or temperature sampling,
-speculative decoding, the prefix cache and SLO admission, for the
-families the port has (dense, gpt2, MoE, and the recurrent ssm and
-hybrid) on one device (``tp=1``; tensor parallelism is ROADMAP queue 1
-item 7 and is rejected at construction). As in the reference,
+speculative decoding, the prefix cache, SLO admission and tensor and
+expert parallelism, for the families the port has (dense, gpt2, MoE, and
+the recurrent ssm and hybrid, which serve at ``tp=1`` only, as in the
+reference). As in the reference,
 construction runs one validation pass over the family x feature matrix
 (``models/state.py``'s ``validate_serve_features``) and every cache
 operation goes through the family's ``DecodeState`` adapter. Its
@@ -70,6 +70,19 @@ scheduling is the reference's:
   the prefix cache on): a prompt's cached full pages copied to host
   memory and into another engine's pool and radix tree, bit for bit,
   where its ordinary warm admission reuses them (``serving/disagg.py``).
+* ``tensor parallelism`` (``tp=N``): one process a rank
+  (``distributed/group.py``); this process is rank 0 and the only
+  scheduler. Every device program below (admission, the decode and
+  speculative chunks, the reference loops' steps, the page hand-off) runs
+  through ``_program``, which ships its name and host arguments to the
+  other ranks; each rank runs the same body on its own shard under the
+  plan (``distributed/sharding.py``): weights lane-sharded (K rows whole),
+  the KV ring and the page pool over kv heads, expert stacks over experts
+  (EP), and each projection assembled by its collective. Under the
+  default "padded" datapath the products keep the single-device shape,
+  so tokens equal tp=1's; "sliced" and "sliced_row" agree to the
+  reference's tolerances. The pool's page budget counts whole pages, as
+  at tp=1, so eviction is the same at every degree.
 * ``SLO admission``: ``priority`` strata, then the earliest TTFT
   deadline, then submission order drain the queue (uniform priority and
   no deadlines is FIFO); ``max_queue`` bounds the queue
@@ -118,8 +131,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quantize import _div
+from repro_torch.core.quantize import QTensor, _div
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.group import TPGroup, rank_devices
 from repro_torch.models import transformer as T
 from repro_torch.models.state import DecodeState, validate_serve_features
 from repro_torch.serving.drafters import make_drafter
@@ -161,15 +176,20 @@ class ServeConfig:
     # strictly higher priority than some running request, cancel the
     # lowest-priority (then youngest) one to free its slot
     preempt: bool = False
-    # tensor parallelism: not ported (ROADMAP queue 1 item 7); stays 1
+    # tensor parallelism: ranks, one process each (distributed/group.py)
     tp: int = 1
-    tp_matmul: str = "padded"
-    tp_ep: bool = True
-
-
-# features of the reference engine this port does not have yet: the value
-# that leaves each one off, and where the ROADMAP ports it
-_NOT_PORTED = {"tp": (1, "tensor parallelism, ROADMAP queue 1 item 7")}
+    tp_matmul: str = "padded"           # "padded" (tp=1's bits: the
+                                        # single-device product shape,
+                                        # weights and KV sharded) |
+                                        # "sliced" (1/tp of the work a
+                                        # rank, within an f32 ulp) |
+                                        # "sliced_row" (+ row-parallel
+                                        # o-/down-proj: half the
+                                        # collectives, within a few
+                                        # activation-dtype ulps)
+    tp_ep: bool = True                  # MoE expert parallelism under tp
+                                        # where n_experts divides it (the
+                                        # same bits as replicated experts)
 
 _M64 = (1 << 64) - 1
 
@@ -183,6 +203,17 @@ def _draw_seed(seed: int, draw: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return (z ^ (z >> 31)) >> 1             # torch seeds below 2**63
+
+
+def _tree_to(tree, device: torch.device):
+    """A parameter tree (dicts of tensors and QTensors) on ``device``;
+    leaves already there are kept as they are (views stay views)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.variant, tree.shape,
+                       {k: _tree_to(v, device) for k, v in tree.data.items()})
+    return tree if tree.device == device else tree.to(device)
 
 
 @dataclasses.dataclass
@@ -246,24 +277,90 @@ class Request:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 device="cuda"):
+                 device="cuda", *, group: Optional[TPGroup] = None):
         """``params`` must already lie on ``device``. With no GPU the
-        default device raises; pass ``device="cpu"`` for the CPU path."""
-        self.device = resolve_device(device)
+        default device raises; pass ``device="cpu"`` for the CPU path.
+
+        At ``serve_cfg.tp`` = N > 1 the engine starts N - 1 worker ranks
+        (or opens on ``group``, a ``TPGroup`` of N ranks that outlives
+        it) and hands each its local shard of ``params``. ``device``
+        places the ranks (``distributed.group.rank_devices``): "cuda"
+        puts rank r on cuda:r and raises with fewer cards, a list such as
+        ``["cuda:0"] * N`` shares cards, "cpu" takes any N. Every
+        rendezvous and collective waits at most the group's timeout.
+        Close the engine (``close()``, or use it as a context manager) to
+        stop its workers."""
         for field in ("max_slots", "decode_chunk", "max_new_tokens",
                       "cache_len", "prefill_batch", "prefill_chunk", "tp"):
             if getattr(serve_cfg, field) < 1:
                 raise ValueError(f"ServeConfig.{field} must be >= 1, got "
                                  f"{getattr(serve_cfg, field)}")
-        for field, (off, where) in _NOT_PORTED.items():
-            if getattr(serve_cfg, field) != off:
-                raise NotImplementedError(
-                    f"ServeConfig.{field}={getattr(serve_cfg, field)!r} is "
-                    f"not ported yet ({where}); this engine serves on one "
-                    f"device without it (leave it at {off!r})")
+        tp = serve_cfg.tp
+        self._caps = validate_serve_features(
+            cfg, tp=tp, drafter=serve_cfg.drafter is not None,
+            prefix_cache=serve_cfg.prefix_cache)
+        # the plan validates tp_matmul at every degree, as the reference's
+        self._plan = SH.make_serve_tp_plan(cfg, tp,
+                                           matmul=serve_cfg.tp_matmul,
+                                           params=params, ep=serve_cfg.tp_ep)
+        if tp == 1:
+            devices = [resolve_device(device)]
+        elif group is not None:
+            if group.size != tp or group.closed:
+                raise ValueError(f"group of {group.size} ranks (closed: "
+                                 f"{group.closed}) for tp={tp}")
+            devices = group.devices
+        else:
+            devices = rank_devices(device, tp)
+        self._setup(cfg, serve_cfg, devices[0])
+        self.params = params
+        self._rank, self._group, self._eid = 0, None, None
+        self._own_group, self._closed = False, False
+        self.tp_backend: Optional[str] = None
+        if tp == 1:
+            return
+        self._pspecs = SH.serve_param_specs(params, self._plan)
+        self._cspecs = SH.serve_cache_specs(
+            T.init_cache(cfg, 1, self._T, device="meta"), self._plan)
+        shards = [_tree_to(SH.localize_serve_params(params, self._pspecs,
+                                                    tp, r), devices[r])
+                  for r in range(tp)]
+        self._own_group = group is None
+        self._group = group or TPGroup(tp, devices)
+        try:
+            self._eid = self._group.open_engine(cfg, serve_cfg, self._plan,
+                                                shards[1:])
+        except BaseException:
+            if self._own_group:
+                self._group.abort()
+            raise
+        # rank 0 keeps every shard alive: the workers map them by CUDA IPC
+        # or shared memory
+        self._shards = shards
+        self.params = shards[0]
+        self.tp_backend = self._group.backend
+        print(f"[tp] {self._group.describe()}", flush=True)
+
+    @classmethod
+    def _mirror(cls, cfg, params, serve_cfg, device, plan, rank, group):
+        """A worker rank's copy of an engine: the same device programs on
+        this rank's shard ``params``, driven by rank 0 (``_run_mirrored``);
+        it never schedules."""
+        self = cls.__new__(cls)
         self._caps = validate_serve_features(
             cfg, tp=serve_cfg.tp, drafter=serve_cfg.drafter is not None,
             prefix_cache=serve_cfg.prefix_cache)
+        self._plan = plan
+        self._setup(cfg, serve_cfg, torch.device(device))
+        self.params = params
+        self._rank, self._group, self._eid = rank, group, None
+        self._own_group, self._closed = False, False
+        return self
+
+    def _setup(self, cfg: ModelConfig, serve_cfg: ServeConfig,
+               device: torch.device) -> None:
+        """The host state every rank's engine has."""
+        self.device = device
         T._check_family(cfg)
         if not cfg.embed_input:
             raise ValueError(
@@ -272,7 +369,6 @@ class Engine:
                 "through training.steps.make_serve_steps)")
         self._state = DecodeState(cfg)
         self.cfg = cfg
-        self.params = params
         self.scfg = serve_cfg
         self._B = serve_cfg.max_slots
         self._T = T.attn_cache_len(cfg, serve_cfg.cache_len)
@@ -328,6 +424,54 @@ class Engine:
         self._gen = torch.Generator(device=self.device)
         self.stats: Dict[str, float] = {}
         self._reset()
+
+    # -- tensor parallelism: program dispatch ------------------------------
+    def _program(self, name: str, *args):
+        """Run device program ``name`` on host arguments ``args``: here
+        alone at tp=1; at tp > 1 its name, arguments and the sampling draw
+        counter go to every worker first and each rank runs the same body
+        on its shard under the plan. Rank 0's result is returned. A
+        failure in the body closes the group (the others would wait in a
+        collective), and the engine with it."""
+        if self._closed:
+            raise RuntimeError("the engine is closed")
+        if self._group is None:
+            return getattr(self, name)(*args)
+        self._group.call(self._eid, name, args, {"draw": self._draw})
+        try:
+            with SH.serve_tp(self._plan, 0, self._group):
+                return getattr(self, name)(*args)
+        except BaseException:
+            self._group.abort()
+            self._closed = True
+            raise
+
+    def _run_mirrored(self, name: str, args: tuple, host: dict) -> None:
+        """A worker rank's side of ``_program``."""
+        self._draw = host["draw"]
+        with SH.serve_tp(self._plan, self._rank, self._group):
+            getattr(self, name)(*args)
+
+    def close(self) -> None:
+        """Stop this engine's worker ranks (tp > 1; a ``group`` passed in
+        stays open and only forgets the engine). Idempotent; stats and
+        results stay readable."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._group is not None and self._rank == 0:
+            if self._own_group:
+                self._group.close()
+            else:
+                self._group.drop_engine(self._eid)
+            self._shards = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     # -- device programs -----------------------------------------------------
     def _new_cache(self, B: int):
@@ -809,11 +953,16 @@ class Engine:
                  if k in T._PAGE_KEYS}
         self._state.scatter_pages(gcache, pages, rows, cols, pos)
 
-    def _insert_prefix_pages(self, gcache, reqs, lens) -> None:
+    def _plan_prefix_inserts(self, reqs, lens):
         """Record every request's full prompt pages in the radix tree and
-        copy newly allocated ones out of the freshly prefilled group
-        cache. Prompts longer than the ring skip insertion: ring wrap
-        overwrote their early pages."""
+        return the copy jobs (group_row, pool_idx, start_pos) of the newly
+        allocated ones, which the admission program copies out of the
+        freshly prefilled group cache. Prompts longer than the ring skip
+        insertion: ring wrap overwrote their early pages. It runs before
+        the prefill (no tree operation comes between the match and this
+        insert, so its choices are the ones an insert after the prefill
+        makes; the device still reads matched pages before it writes
+        recycled ones)."""
         ev0 = self._prefix.evictions
         dr0 = self._prefix.insert_drops
         jobs = []
@@ -826,7 +975,7 @@ class Engine:
         self.stats["prefix_evictions"] += self._prefix.evictions - ev0
         self.stats["prefix_insert_drops"] += (self._prefix.insert_drops
                                               - dr0)
-        self._copy_ring_pages(gcache, jobs)
+        return jobs
 
     def _copy_ring_pages(self, gcache, jobs) -> None:
         """Copy the ring payload of pages just recorded in the radix tree,
@@ -956,12 +1105,25 @@ class Engine:
         chain = self._prefix.page_chain(tokens)
         if not chain:
             return KVPages(page=self._page, tokens=[], payload={})
-        self._ensure_pool()
-        idx = torch.as_tensor([i for i, _ in chain], device=self.device)
+        payload = self._program("_export_device",
+                                np.array([i for i, _ in chain], np.int64))
         return KVPages(page=self._page,
                        tokens=tokens[:len(chain) * self._page],
-                       payload={k: v[:, idx].cpu()
-                                for k, v in self._pool.items()})
+                       payload=payload)
+
+    def _export_device(self, idx):
+        """Pool rows ``idx`` of every payload on the host; under TP the kv
+        heads of every rank, gathered in rank order (axis 3)."""
+        self._ensure_pool()
+        idx_d = torch.as_tensor(idx, device=self.device)
+        rules = SH.serve_cache_specs(self._pool, self._plan)
+        out = {}
+        for k, v in self._pool.items():
+            pg = v[:, idx_d]
+            if rules[k] is not None:
+                pg = self._group.all_gather(pg, dim=rules[k])
+            out[k] = pg.cpu()
+        return out
 
     def import_kv_pages(self, kv: KVPages) -> int:
         """Adopt another engine's exported pages: key their token chain in
@@ -990,14 +1152,26 @@ class Engine:
                                               - drops0)
         if not new:
             return 0
-        self._ensure_pool()
-        src = torch.as_tensor([p0 // self._page for _, p0 in new])
-        dst = torch.as_tensor([i for i, _ in new], device=self.device)
-        for k, pool in self._pool.items():
-            if k in kv.payload:
-                pool[:, dst] = kv.payload[k][:, src].to(self.device,
-                                                        pool.dtype)
+        self._program("_import_device",
+                      np.array([p0 // self._page for _, p0 in new], np.int64),
+                      np.array([i for i, _ in new], np.int64), kv.payload)
         return len(new)
+
+    def _import_device(self, src, dst, payload):
+        """Payload pages ``src`` into pool rows ``dst``; under TP each rank
+        takes its own kv heads (axis 3)."""
+        self._ensure_pool()
+        rules = SH.serve_cache_specs(self._pool, self._plan)
+        src_t = torch.as_tensor(src)
+        dst_d = torch.as_tensor(dst, device=self.device)
+        for k, pool in self._pool.items():
+            if k not in payload:
+                continue
+            pg = payload[k][:, src_t]
+            if rules[k] is not None:
+                n = pg.shape[rules[k]] // self._plan.size
+                pg = pg.narrow(rules[k], self._rank * n, n)
+            pool[:, dst_d] = pg.to(self.device, pool.dtype)
 
     # -- admission -----------------------------------------------------------
     def _admit_group(self, slots: List[int], reqs: List[Request]) -> None:
@@ -1012,7 +1186,10 @@ class Engine:
         warm rows restore the checkpoint at the group's full-page horizon
         s0 (``_match_checkpoints``; hybrid also scatters its ring pages
         below s0), the chunk loop starts at s0, and the pages recorded
-        before the loop take their checkpoints chunk by chunk."""
+        before the loop take their checkpoints chunk by chunk.
+
+        The host plans everything (matches, inserts, the group shape) and
+        the device part is one program, ``_admit_device``."""
         t0 = time.perf_counter()
         for r in reqs:
             if r.submit_t is not None:
@@ -1020,13 +1197,14 @@ class Engine:
         G = len(reqs)
         lens = [len(r.prompt) for r in reqs]
         caps = self._caps
-        s0, jobs, ckpt_jobs, ins_by_chunk, ring_jobs = 0, [], [], {}, []
+        s0, jobs, ckpt_jobs, ins_by_chunk, copy_jobs = 0, [], [], {}, []
         if self._prefix is not None and caps.recurrent:
             s0, fulls, jobs, ckpt_jobs = self._match_checkpoints(reqs)
-            ins_by_chunk, ring_jobs = self._plan_checkpoint_inserts(
+            ins_by_chunk, copy_jobs = self._plan_checkpoint_inserts(
                 reqs, lens, fulls, s0)
         elif self._prefix is not None:
             s0, jobs = self._match_prefixes(reqs)
+            copy_jobs = self._plan_prefix_inserts(reqs, lens)
         P, C, Gp = self._group_shape(
             [n - s0 for n in lens],
             whole=caps.recurrent or (s0 > 0 and caps.capacity_follows_chunk))
@@ -1035,35 +1213,13 @@ class Engine:
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt
             lengths[i] = lens[i]
-        if self._cache is None:
-            self._cache = self._new_cache(self._B)
-        gcache = self._new_cache(Gp)
-        if ckpt_jobs:
-            self._scatter_checkpoints(gcache, ckpt_jobs)
-        if jobs:
-            self._scatter_prefix_pages(gcache, jobs)
-        last_logits = torch.zeros((Gp, self.cfg.vocab_size),
-                                  dtype=torch.float32, device=self.device)
-        lengths_d = torch.as_tensor(lengths, device=self.device)
-        toks_d = torch.as_tensor(toks, device=self.device)
-        for j, start in enumerate(range(s0, s0 + P, C)):
-            gcache, last_logits = self._prefill_chunk_impl(
-                gcache, toks_d[:, start:start + C], start, lengths_d,
-                last_logits)
-            if j in ins_by_chunk:
-                # before the next chunk overwrites the state in place
-                self._insert_checkpoints(gcache, ins_by_chunk[j])
-        firsts = self._sample_first(last_logits, G).cpu().numpy()  # 1 sync
         budgets = np.zeros(Gp, np.int64)            # dummies: 0 -> unbound
         budgets[:G] = [r.max_new_tokens for r in reqs]
         free_arr = np.full(Gp, self._B, np.int64)
         free_arr[:G] = slots
-        idx = self._bind_slots(firsts, budgets, free_arr)
-        self._state.set_slots(self._cache, gcache, idx)
-        if self._prefix is not None and caps.recurrent:
-            self._copy_ring_pages(gcache, ring_jobs)    # hybrid's rings
-        elif self._prefix is not None:
-            self._insert_prefix_pages(gcache, reqs, lens)
+        firsts, idx = self._program(
+            "_admit_device", toks, lengths, s0, P, C, G, jobs, ckpt_jobs,
+            ins_by_chunk, copy_jobs, budgets, free_arr)
         self.stats["host_syncs"] += 1
         self.stats["prefill_groups"] += 1
         self.stats["admissions"] += G
@@ -1082,6 +1238,69 @@ class Engine:
             else:
                 self._start_slot(int(idx[i]), req, int(firsts[i]), lens[i])
         self._admitting = []
+
+    def _admit_device(self, toks, lengths, s0, P, C, G, jobs, ckpt_jobs,
+                      ins_by_chunk, copy_jobs, budgets, free_arr):
+        """Admission's device program: the group cache (checkpoints and
+        matched pages scattered in), the chunk loop from s0, the first
+        tokens (one host sync), the slot binding, the scatter into the
+        decode cache and the copies of new pages into the pool. Returns
+        (first tokens, scatter indices), host arrays."""
+        if self._cache is None:
+            self._cache = self._new_cache(self._B)
+        gcache = self._new_cache(toks.shape[0])
+        if ckpt_jobs:
+            self._scatter_checkpoints(gcache, ckpt_jobs)
+        if jobs:
+            self._scatter_prefix_pages(gcache, jobs)
+        gcache, last_logits = self._prefill_group(gcache, toks, lengths, s0,
+                                                  P, C, ins_by_chunk)
+        firsts = self._sample_first(last_logits, G).cpu().numpy()  # 1 sync
+        idx = self._bind_slots(firsts, budgets, free_arr)
+        self._state.set_slots(self._cache, gcache, idx)
+        self._copy_ring_pages(gcache, copy_jobs)
+        return firsts, idx
+
+    def prefill_logits(self, prompts: List[List[int]]) -> np.ndarray:
+        """The last-prompt-token logits (G, V) f32 of one group prefill of
+        ``prompts`` (at most ``prefill_batch``), the numbers admission
+        samples the first tokens from; the decode cache, the prefix cache
+        and the sampling stream are left as they were. The probe that
+        holds a datapath's numbers against another's."""
+        if not 0 < len(prompts) <= self.scfg.prefill_batch:
+            raise ValueError(f"need 1 to prefill_batch="
+                             f"{self.scfg.prefill_batch} prompts, got "
+                             f"{len(prompts)}")
+        lens = [len(p) for p in prompts]
+        P, C, Gp = self._group_shape(lens, whole=self._caps.recurrent)
+        toks = np.zeros((Gp, P), np.int64)
+        lengths = np.zeros(Gp, np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :lens[i]] = p
+            lengths[i] = lens[i]
+        out = self._program("_prefill_logits_device", toks, lengths, P, C)
+        return out[:len(prompts)]
+
+    def _prefill_logits_device(self, toks, lengths, P, C):
+        return self._prefill_group(self._new_cache(toks.shape[0]), toks,
+                                   lengths, 0, P, C)[1].cpu().numpy()
+
+    def _prefill_group(self, gcache, toks, lengths, s0, P, C,
+                       ins_by_chunk=None):
+        """The chunk loop of a group prefill over [s0, s0 + P): (the group
+        cache, the last-prompt-token logits (G, V) f32). Checkpoint pages
+        ``ins_by_chunk`` are copied after their chunk."""
+        last = torch.zeros((toks.shape[0], self.cfg.vocab_size),
+                           dtype=torch.float32, device=self.device)
+        lengths_d = torch.as_tensor(lengths, device=self.device)
+        toks_d = torch.as_tensor(toks, device=self.device)
+        for j, start in enumerate(range(s0, s0 + P, C)):
+            gcache, last = self._prefill_chunk_impl(
+                gcache, toks_d[:, start:start + C], start, lengths_d, last)
+            if ins_by_chunk and j in ins_by_chunk:
+                # before the next chunk overwrites the state in place
+                self._insert_checkpoints(gcache, ins_by_chunk[j])
+        return gcache, last
 
     @staticmethod
     def _admit_key(req: Request):
@@ -1137,30 +1356,22 @@ class Engine:
     # -- decode --------------------------------------------------------------
     def _run_chunk(self) -> None:
         t0 = time.perf_counter()
-        dev = self.device
-        state = [torch.as_tensor(a, device=dev) for a in (
-            self._tok, self._pos, self._live, self._ngen, self._budget)]
         if self._drafter is not None:
-            tok_d, pos_d, live_d, ngen_d, budget_d = state
-            ds = {k: torch.as_tensor(v, device=dev)
-                  for k, v in self._dstate.items()}
-            (out_d, tok_d, pos_d, live_d, ngen_d, ds, drafted, accepted,
-             rounds) = self._spec_chunk_impl(
-                tok_d, pos_d, live_d, torch.as_tensor(self._spec, device=dev),
-                ngen_d, budget_d, ds)
-            self._dstate = {k: np.array(v.cpu()) for k, v in ds.items()}
-            self.stats["draft_tokens"] += int(drafted)
-            self.stats["draft_accepted"] += int(accepted)
+            (out, tok, pos, live, ngen, self._dstate, drafted, accepted,
+             rounds) = self._program(
+                "_spec_chunk_device", self._tok, self._pos, self._live,
+                self._spec, self._ngen, self._budget, self._dstate)
+            self.stats["draft_tokens"] += drafted
+            self.stats["draft_accepted"] += accepted
             self.stats["spec_rounds"] += rounds
         else:
             # the steps this chunk needs: without EOS every live slot dies
             # exactly when its budget runs out, so the host knows the count
             remaining = np.where(self._live, self._budget - self._ngen, 0)
             steps = int(min(self.scfg.decode_chunk, remaining.max()))
-            out_d, tok_d, pos_d, live_d, ngen_d = self._decode_chunk_impl(
-                *state, steps)
-        out, tok, pos, live, ngen = (np.array(t.cpu()) for t in (
-            out_d, tok_d, pos_d, live_d, ngen_d))           # THE chunk sync
+            out, tok, pos, live, ngen = self._program(
+                "_decode_chunk_device", self._tok, self._pos, self._live,
+                self._ngen, self._budget, steps)
         self._tok, self._pos, self._live, self._ngen = tok, pos, live, ngen
         if self._drafter is None:
             # the steps with a live slot drew noise; a step after every
@@ -1170,6 +1381,30 @@ class Engine:
         self.stats["chunks"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
         self._emit_chunk(out)
+
+    def _decode_chunk_device(self, tok, pos, live, ngen, budget, steps):
+        """The decode chunk's program: host state in, ``steps`` decode
+        steps, host state out (THE chunk sync)."""
+        state = [torch.as_tensor(a, device=self.device)
+                 for a in (tok, pos, live, ngen, budget)]
+        res = self._decode_chunk_impl(*state, steps)
+        return tuple(np.array(t.cpu()) for t in res)
+
+    def _spec_chunk_device(self, tok, pos, live, spec, ngen, budget,
+                           dstate):
+        """The speculative chunk's program (``_spec_chunk_impl``)."""
+        dev = self.device
+        tok_d, pos_d, live_d, spec_d, ngen_d, budget_d = (
+            torch.as_tensor(a, device=dev)
+            for a in (tok, pos, live, spec, ngen, budget))
+        ds = {k: torch.as_tensor(v, device=dev) for k, v in dstate.items()}
+        (out, tok_d, pos_d, live_d, ngen_d, ds, drafted, accepted,
+         rounds) = self._spec_chunk_impl(tok_d, pos_d, live_d, spec_d,
+                                         ngen_d, budget_d, ds)
+        return (*(np.array(t.cpu()) for t in (out, tok_d, pos_d, live_d,
+                                              ngen_d)),
+                {k: np.array(v.cpu()) for k, v in ds.items()},
+                int(drafted), int(accepted), rounds)
 
     def _emit_chunk(self, out: np.ndarray) -> None:
         """Stream each slot's dense token prefix; free finished slots."""
@@ -1273,16 +1508,9 @@ class Engine:
         decode loop, not a serving path."""
         ids = self._start_reference(prompts)
         t0 = time.perf_counter()
-        dev = self.device
         while self._live.any():
-            tok = torch.as_tensor(self._tok, device=dev)
-            live = torch.as_tensor(self._live, device=dev)
-            logits, self._cache = T.decode_step(
-                self.params, self.cfg, self._cache, tokens=tok,
-                position=torch.as_tensor(self._pos, device=dev), live=live)
-            self.stats["forwards"] += 1
-            nxt = torch.where(live, self._sample(logits, self._draw),
-                              tok).cpu().numpy()
+            nxt = self._program("_ref_step", self._tok, self._pos,
+                                self._live)
             self._draw += 1
             self.stats["host_syncs"] += 1
             for i, req in enumerate(self._slots):
@@ -1303,6 +1531,18 @@ class Engine:
         res = self._end_cycle()
         return [res[i] for i in ids]
 
+    def _ref_step(self, tok, pos, live):
+        """One decode step and its samples (``generate_reference``)."""
+        dev = self.device
+        tok = torch.as_tensor(tok, device=dev)
+        live = torch.as_tensor(live, device=dev)
+        logits, self._cache = T.decode_step(
+            self.params, self.cfg, self._cache, tokens=tok,
+            position=torch.as_tensor(pos, device=dev), live=live)
+        self.stats["forwards"] += 1
+        return torch.where(live, self._sample(logits, self._draw),
+                           tok).cpu().numpy()
+
     def generate_spec_reference(self,
                                 prompts: List[List[int]]) -> List[List[int]]:
         """Host-driven speculative oracle: one verify round per host trip,
@@ -1322,7 +1562,6 @@ class Engine:
         eos = self.scfg.eos_id
         temp = self.scfg.temperature
         cols = np.arange(S)[None]
-        dev = self.device
         t0 = time.perf_counter()
         while self._live.any():
             nout = np.zeros(B, np.int64)            # fresh chunk capacity
@@ -1336,24 +1575,9 @@ class Engine:
                     break
                 progressed = True
                 spec_eff = act & spec_ok
-                ds = {kk: torch.as_tensor(v.copy(), device=dev)
-                      for kk, v in self._dstate.items()}
-                drafts_d, ds = self._drafter.propose(
-                    self.params, self.cfg, self._cache, ds,
-                    torch.as_tensor(self._tok, device=dev),
-                    torch.as_tensor(self._pos, device=dev),
-                    torch.as_tensor(spec_eff, device=dev))
-                drafts = drafts_d.cpu().numpy()
-                x = np.concatenate([self._tok[:, None], drafts], axis=1)
-                positions = self._pos[:, None] + cols
-                valid = act[:, None] & ((cols == 0) | spec_eff[:, None])
-                slots_d = torch.as_tensor(positions % self._T, device=dev)
-                snap = self._state.ring_snapshot(self._cache, slots_d)
-                logits = self._verify_impl(
-                    torch.as_tensor(x, device=dev),
-                    torch.as_tensor(positions, device=dev),
-                    torch.as_tensor(valid, device=dev))
-                logits = logits.cpu().numpy().astype(np.float32)
+                drafts, logits = self._program(
+                    "_spec_ref_verify", self._tok, self._pos, act, spec_eff,
+                    self._dstate)
                 self.stats["host_syncs"] += 1
                 # -- host acceptance (an independent numpy implementation)
                 if temp > 0:
@@ -1394,12 +1618,8 @@ class Engine:
                     e = np.where(hit.any(1), np.minimum(e, first + 1), e)
                 e = np.where(act, e, 0)
                 keep = np.where(act, 1 + acc, 0)
-                self._state.ring_rewind(self._cache, snap, slots_d,
-                                        torch.as_tensor(keep, device=dev))
-                ds = self._drafter.update(ds, torch.as_tensor(emit,
-                                                              device=dev),
-                                          torch.as_tensor(e, device=dev))
-                self._dstate = {kk: np.array(v.cpu()) for kk, v in ds.items()}
+                self._dstate = self._program("_spec_ref_commit", keep, emit,
+                                             e)
                 self.stats["draft_tokens"] += int(spec_eff.sum()) * k
                 self.stats["draft_accepted"] += int(acc[spec_eff].sum())
                 self.stats["spec_rounds"] += 1
@@ -1424,3 +1644,39 @@ class Engine:
         self.stats["decode_s"] += time.perf_counter() - t0
         res = self._end_cycle()
         return [res[i] for i in ids]
+
+    def _spec_ref_verify(self, tok, pos, act, spec_eff, dstate):
+        """``generate_spec_reference``'s device half of a round: drafts,
+        the ring snapshot (kept for ``_spec_ref_commit``) and the verify
+        pass. Returns (drafts, logits (B, k+1, V) f32), host arrays."""
+        dev = self.device
+        ds = {k: torch.as_tensor(v.copy(), device=dev)
+              for k, v in dstate.items()}
+        drafts_d, ds = self._drafter.propose(
+            self.params, self.cfg, self._cache, ds,
+            torch.as_tensor(tok, device=dev), torch.as_tensor(pos, device=dev),
+            torch.as_tensor(spec_eff, device=dev))
+        drafts = drafts_d.cpu().numpy()
+        cols = np.arange(drafts.shape[1] + 1)[None]
+        x = np.concatenate([tok[:, None], drafts], axis=1)
+        positions = pos[:, None] + cols
+        valid = act[:, None] & ((cols == 0) | spec_eff[:, None])
+        slots_d = torch.as_tensor(positions % self._T, device=dev)
+        self._ref_round = (self._state.ring_snapshot(self._cache, slots_d),
+                           slots_d, ds)
+        logits = self._verify_impl(torch.as_tensor(x, device=dev),
+                                   torch.as_tensor(positions, device=dev),
+                                   torch.as_tensor(valid, device=dev))
+        return drafts, logits.cpu().numpy().astype(np.float32)
+
+    def _spec_ref_commit(self, keep, emit, e):
+        """The round's rewind of rejected drafts and the drafter's update;
+        returns the drafter state as host arrays."""
+        dev = self.device
+        snap, slots_d, ds = self._ref_round
+        self._ref_round = None
+        self._state.ring_rewind(self._cache, snap, slots_d,
+                                torch.as_tensor(keep, device=dev))
+        ds = self._drafter.update(ds, torch.as_tensor(emit, device=dev),
+                                  torch.as_tensor(e, device=dev))
+        return {k: np.array(v.cpu()) for k, v in ds.items()}

@@ -671,3 +671,59 @@ def test_train_step_on_the_card_equals_the_cpu(cuda_device):
     noise = _update_err(cpu, cpu32, p0)
     assert _update_err(card, cpu, p0) <= 2 * noise, noise
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PB.VARIANTS)
+def test_kernel_on_tensor_parallel_shards(cuda_device, variant):
+    """The kernel on a rank's shards of a packed weight, against its plain
+    version: a lane slice (a strided view: "sliced"), a K-row slice with
+    f32 output ("sliced_row"), and the zero-embedded full width
+    ("padded"), whose rank columns equal the whole weight's bit for bit
+    and whose other columns are zero."""
+    from repro_torch.distributed import sharding as SH
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    M, K, N = 4, 1024, 512
+    t = PQ.quantize(variant, torch.randn(K, N, generator=g,
+                                         device=cuda_device) / K ** 0.5)
+    x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    whole = PB.bfp_matmul_cuda(x, t, out_dtype=torch.float32)
+    for tp in (2, 4):
+        n, k = N // tp, K // tp
+        for r in range(tp):
+            lane = SH.lane_shard_qtensor(t, r, tp)
+            rows = SH.row_shard_qtensor(t, r, tp)
+            xr = x[:, r * k:(r + 1) * k].contiguous()
+            for xx, w in ((x, lane), (xr, rows)):
+                y = PB.bfp_matmul_cuda(xx, w, out_dtype=torch.float32)
+                ref = PB.bfp_matmul_plain(xx, w, out_dtype=torch.float32)
+                assert _rel_err(y, ref) <= TOL_F32, (tp, r, w.shape)
+            with SH.serve_tp(SH.ServeTPPlan(size=tp), r, group=True):
+                emb = PO.tp_embed_lanes(lane)
+            y = PB.bfp_matmul_cuda(x, emb, out_dtype=torch.float32)
+            assert torch.equal(y[:, r * n:(r + 1) * n],
+                               whole[:, r * n:(r + 1) * n])
+            assert bool((y[:, :r * n] == 0).all()
+                        and (y[:, (r + 1) * n:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_tp_engine_ranks_share_the_card(cuda_device):
+    """tp=2 with both ranks on one card (gloo, CUDA operands staged through
+    host memory) serves the tp=1 engine's greedy tokens ("padded")."""
+    from repro_torch.serving.engine import Engine, ServeConfig
+    cfg = get_arch("tinyllama-1.1b", reduced=True)
+    params = PT.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    qp, _ = quantize_params(params, get_policy("paper_llama_mix"))
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in (5, 17, 30)]
+    scfg = dict(max_new_tokens=6, max_slots=3, cache_len=64,
+                prefill_chunk=16)
+    want = Engine(cfg, qp, ServeConfig(**scfg),
+                  device=cuda_device).generate(prompts)
+    with Engine(cfg, qp, ServeConfig(tp=2, **scfg),
+                device=["cuda:0"] * 2) as eng:
+        assert eng.tp_backend == "gloo"
+        assert eng.generate(prompts) == want

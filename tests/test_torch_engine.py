@@ -130,15 +130,14 @@ def test_budgets_eos_and_cancel(workload):
                                          ("prefix_cache", True), ("tp", 2),
                                          ("max_queue", 4), ("preempt", True)])
 def test_unported_features_raise(workload, field, value):
-    """Only tensor parallelism is still unported: it raises, alone or
-    beside a ported feature, which the engine now takes and serves."""
+    """No feature of the reference's engine is left unported (tensor
+    parallelism was the last): each one, alone and beside tp=2 (two CPU
+    ranks), serves the plain engine's tokens."""
     _, _, pqp, prompts = workload
-    if field == "tp":
-        with pytest.raises(NotImplementedError,
-                           match="tp=2.*queue 1 item 7"):
-            _port_engine(pqp, tp=value)
-        return
-    got = _port_engine(pqp, **{field: value}).generate(prompts[:2])
-    assert got == _port_engine(pqp).generate(prompts[:2])
-    with pytest.raises(NotImplementedError, match="tp"):
-        _port_engine(pqp, tp=2, **{field: value})
+    want = _port_engine(pqp).generate(prompts[:2])
+    if field != "tp":
+        assert _port_engine(pqp, **{field: value}).generate(
+            prompts[:2]) == want
+    with _port_engine(pqp, **{field: value, "tp": 2}) as eng:
+        assert eng.tp_backend == "gloo"
+        assert eng.generate(prompts[:2]) == want

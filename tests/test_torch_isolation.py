@@ -1,9 +1,11 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
-finds no import of ``jax`` and none of ``repro`` (as against
-``repro_torch``); the serving engine imports in a fresh interpreter where
-``import jax`` fails; and the entry points refuse to run without a GPU
+An AST scan of every module of ``src/repro_torch`` (the ``distributed``
+package included) and of ``chip_smoke.py`` finds no import of ``jax`` and
+none of ``repro`` (as against ``repro_torch``); the serving engine imports
+in a fresh interpreter where ``import jax`` fails; a tensor-parallel
+worker rank, spawned by its entry point and serving an engine, has
+imported neither; and the entry points refuse to run without a GPU
 unless the caller asks for the CPU.
 """
 import ast
@@ -57,7 +59,8 @@ def test_engine_imports_without_jax():
             "repro_torch.serving.disagg, repro_torch.serving.frontend, "
             "repro_torch.training.steps, repro_torch.training.loop, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
-            "repro_torch.checkpoint.ckpt, repro_torch.launch.train; "
+            "repro_torch.checkpoint.ckpt, repro_torch.launch.train, "
+            "repro_torch.distributed.sharding, repro_torch.distributed.group; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -91,3 +94,25 @@ def test_policy_entry_points_raise_where_no_gpu():
                     "auto"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--disagg"])
+
+
+def test_tp_worker_imports_neither_jax_nor_reference():
+    """A worker rank (``distributed.group._worker_main``, spawned) that
+    holds an engine and has served a request: its process imported no
+    ``jax`` and no ``repro`` (this process may have: the tests do)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.group import TPGroup, imported_top_modules
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, ServeConfig
+    cfg = get_arch("tinyllama-1.1b", reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with TPGroup(2, "cpu", timeout_s=120.0) as group:
+        scfg = ServeConfig(tp=2, max_new_tokens=2, cache_len=32)
+        with Engine(cfg, params, scfg, device="cpu", group=group) as eng:
+            eng.generate([[1, 2, 3]])
+        mods = group.map(imported_top_modules, [(), ()])
+    assert "repro_torch" in mods[0]
+    assert "repro_torch" in mods[1] and "torch" in mods[1]
+    assert "jax" not in mods[1] and "jaxlib" not in mods[1]
+    assert "repro" not in mods[1]
