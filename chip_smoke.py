@@ -359,6 +359,31 @@ Phases, each of which exits nonzero on failure:
 43. one decode chunk's wall time, rank 0's kernel ms (``torch.profiler``)
    and collectives a step at tp=2 beside tp=1: shared card, host-staged
    gloo, a record and not a claim.
+44. the dry run, slice 13 (``launch/dryrun.py``): ``DRYRUN_CELLS`` (the
+   two-pod production mesh, (2, 16, 16)) at full width and depth, one
+   rank's real step on a fake 512-rank world, run by a subprocess that sees no card, after phase 43 (nothing
+   runs beside the earlier phases' host clocks). Every cell must run
+   within ``DRYRUN_WAIT_S`` and be ``ok``, with no kind of DTensor
+   fallback outside its list and CUDA never initialised in its process;
+   ``torch.cuda.memory_allocated`` is unchanged across the phase in this
+   one. Each rank's memory (and whether it fits 80 GB), the three
+   roofline terms at the H100's rates, ``dominant``, ``mfu`` and the
+   trace time printed.
+45. the dry run against real steps on a (1, 1) mesh: tinyllama-1.1b's
+   path-23 train step (8 x 256, 2 microbatches) and a default_serve_mix
+   decode step at B = 8 over 4096 slots. The dry run's argument bytes
+   equal the real state's (or packed weights', cache's) and inputs'
+   byte for byte; its argument + temp peak over the card's
+   ``max_memory_allocated`` of the same step on the dry run's datapath
+   (plain matmul, blockwise attention, remat) lies in
+   ``DRYRUN_PEAK_BAND``; the card's own datapath (the matmul kernel for
+   the decode, whose launches are counted) is timed beside the
+   roofline's ``step_time_s``.
+46. ``distributed/compress.py::compressed_psum`` over 2 ranks on cuda:0
+   (gloo, staged through the host), 2 steps: each rank's error state is
+   its rounding residual bit for bit, the second step fed the first's;
+   both ranks' means equal, within their bf16 roundings of the plain
+   mean.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -614,6 +639,35 @@ TP_DECODE = dict(TP_SERVE, max_new_tokens=25)
 # the attention at a rank's heads: tinyllama's 32 heads and 4 kv heads
 # over 2 and 4 ranks
 TP_ATTN = ((16, 2), (8, 1))
+# slice 13 (phases 44-46): the dry run. Phase 44's production cells, run
+# after phase 43 by a subprocess with CUDA_VISIBLE_DEVICES empty, all
+# within DRYRUN_WAIT_S: (arch, shape, multi_pod, the kinds of op that
+# DTensor may refuse in it and the dry run may gather for; a kind outside
+# the list fails the phase; as torch 2.11 gave them on an H100's host).
+# One cell, the two-pod decode (20-33 s there), to keep phases 44-46 near
+# 120 s: the hill-climb base cells (llama3.2-1b train_4k 58-92 s,
+# granite-moe-3b-a800m train_4k 84 s, qwen2-vl-72b decode_32k 98 s on
+# that host) are left to `python -m repro_torch.launch.dryrun` (PERF.md)
+DRYRUN_CELLS = (
+    ("llama3.2-1b", "decode_32k", True,
+     ("aten.view.default (gathered over 1 mesh dims)",
+      "aten.index_put_.default (local in-place)",
+      "aten.index.Tensor (gathered over 2 mesh dims)")),)
+DRYRUN_WAIT_S = 300.0
+CARD_BYTES = 80e9               # an H100's HBM
+# phase 45: the dry run against real steps on a (1, 1) mesh: tinyllama's
+# training step of path 23 (8 x 256 in 2 microbatches) and a
+# default_serve_mix decode step at B = 8 over a 4096-slot cache; the dry
+# run's argument + temp peak over the card's max_memory_allocated of the
+# same datapath must lie in this band (set from the first runs on an
+# H100: PERF.md, slice 13)
+DRYRUN_TRAIN = dict(global_batch=8, seq_len=256, microbatches=2)
+DRYRUN_DECODE = dict(global_batch=8, seq_len=4096)
+DRYRUN_PEAK_BAND = (0.95, 1.05)
+DRYRUN_TIMED_STEPS = 5
+# phase 46: compressed_psum over 2 ranks sharing cuda:0 (gloo), grads of
+# these shapes from a seed
+COMPRESS_SHAPES = {"w": (2048, 5632), "b": (5632,), "emb": (32000, 64)}
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -4327,6 +4381,293 @@ def phase_slice12(torch, np, get_arch, T, quantize_params, variant_counts,
                             "attn": attn_rows}, summary
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the dry run (launch/dryrun.py), its analytic models and the
+# compressed gradient all-reduce
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS_CODE = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun as D
+if torch.cuda.is_available():
+    sys.exit("the dry run's process sees a card")
+for arch, shape, multi, _ in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    rec = D.dryrun_cell(arch, shape, multi_pod=multi)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["cuda_initialized"] = torch.cuda.is_initialized()
+    print("RECORD " + json.dumps(rec, default=str), flush=True)
+"""
+
+
+def phase_dryrun_cells(torch, root: Path):
+    """Phase 44: the production cells (module note), through
+    ``launch.dryrun.dryrun_cell`` in a subprocess that sees no card. Every
+    cell must have run, come out ``ok`` with no kind of DTensor fallback
+    outside its list, and left CUDA uninitialised in its process; this
+    process's allocation on the card is unchanged too."""
+    t_phase = time.perf_counter()
+    alloc0 = torch.cuda.memory_allocated()
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", DRYRUN_CELLS_CODE,
+             json.dumps(DRYRUN_CELLS)], cwd=root, env=env,
+            capture_output=True, text=True, timeout=DRYRUN_WAIT_S)
+        out, err, rc = proc.stdout, proc.stderr, proc.returncode
+    except subprocess.TimeoutExpired as e:
+        out, err, rc = e.stdout or "", e.stderr or "", "timed out"
+        out, err = (x.decode() if isinstance(x, bytes) else x
+                    for x in (out, err))
+    recs = [json.loads(ln[len("RECORD "):]) for ln in out.splitlines()
+            if ln.startswith("RECORD ")]
+    ran = {(rec["arch"], rec["shape"], rec["multi_pod"]) for rec in recs}
+    missed = [c[:3] for c in DRYRUN_CELLS if tuple(c[:3]) not in ran]
+    check(not missed and rc == 0,
+          f"the dry run did not run {missed} within {DRYRUN_WAIT_S:.0f}s "
+          f"(exit {rc}): {err[-3000:]}")
+    allowed = {tuple(c[:3]): set(c[3]) for c in DRYRUN_CELLS}
+    rows = []
+    for rec in recs:
+        tag = f"{rec['arch']} x {rec['shape']} multi_pod={rec['multi_pod']}"
+        check(rec["status"] == "ok", f"dry run {tag}: {rec}")
+        check(not rec["cuda_initialized"],
+              f"dry run {tag} initialised CUDA")
+        new = set(rec["fallbacks"]) - allowed[(rec["arch"], rec["shape"],
+                                               rec["multi_pod"])]
+        check(not new, f"dry run {tag}: fallbacks outside its list: {new}")
+        m, r = rec["memory"], rec["roofline"]
+        fits = m["total_hbm_bytes"] <= CARD_BYTES
+        rows.append(dict(cell=tag, trace_s=rec["trace_s"],
+                         wall_s=rec["wall_s"], n_chips=rec["n_chips"],
+                         total_hbm_bytes=m["total_hbm_bytes"],
+                         argument_bytes=m["argument_size_in_bytes"],
+                         temp_bytes=m["temp_size_in_bytes"], fits=fits,
+                         compute_s=r["compute_s"], memory_s=r["memory_s"],
+                         collective_s=r["collective_s"],
+                         dominant=r["dominant"], mfu=r["mfu"],
+                         useful=r["useful_flops_fraction"],
+                         fallbacks=rec["fallbacks"],
+                         link_domain_exceeded=rec["link_domain_exceeded"]))
+        print(f"[dryrun] {tag}: per rank {m['total_hbm_bytes'] / 1e9:.2f} "
+              f"GB (args {m['argument_size_in_bytes'] / 1e9:.3f}, temp "
+              f"{m['temp_size_in_bytes'] / 1e9:.2f}), fits 80 GB: {fits}; "
+              f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms -> {r['dominant']}, mfu "
+              f"{r['mfu']:.4f}, useful/counted "
+              f"{r['useful_flops_fraction']:.3f}; traced in "
+              f"{rec['trace_s']}s ({rec['wall_s']:.1f}s with set-up)",
+              flush=True)
+    check(torch.cuda.memory_allocated() == alloc0,
+          "phase 44 allocated on the card")
+    wall = time.perf_counter() - t_phase
+    print(f"[dryrun] all {len(recs)} cells ok; phase 44 in {wall:.1f}s",
+          flush=True)
+    return {"cells": rows, "wait_s": wall}
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a tree of tensors and packed weights."""
+    return sum(v.nbytes if hasattr(v, "variant")
+               else v.numel() * v.element_size() for _, v in _leaves(tree))
+
+
+def _card_peak(torch, fn):
+    """(fn's result, its peak allocation above what was allocated before
+    it, in bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _step_ms(torch, fn, n):
+    """Median wall time of ``n`` calls of ``fn``, each ending in a
+    synchronize, after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _dryrun_vs_card(torch, tag, rec, args_bytes, peak_dry, peak_card,
+                    step_ms):
+    r = rec["roofline"]
+    ratio = peak_dry / peak_card
+    print(f"[dryrun-card] {tag}: argument bytes dry run "
+          f"{rec['memory']['argument_size_in_bytes']:,} == real "
+          f"{args_bytes:,}; argument + temp peak dry run "
+          f"{peak_dry / 1e9:.3f} GB, card max_memory_allocated (same "
+          f"datapath) {peak_card / 1e9:.3f} GB, ratio {ratio:.3f} (band "
+          f"{DRYRUN_PEAK_BAND}); card's datapath step {step_ms:.3f} ms, "
+          f"roofline step_time_s {r['step_time_s'] * 1e3:.3f} ms "
+          f"({r['dominant']}-bound)", flush=True)
+    check(rec["memory"]["argument_size_in_bytes"] == args_bytes,
+          f"{tag}: dry-run argument bytes differ from the real ones")
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"{tag}: dry-run peak / card peak {ratio:.3f} outside "
+          f"{DRYRUN_PEAK_BAND}")
+    return dict(argument_bytes=args_bytes, peak_dry_bytes=peak_dry,
+                peak_card_bytes=peak_card, ratio=ratio, step_ms=step_ms,
+                roofline_step_ms=r["step_time_s"] * 1e3,
+                dominant=r["dominant"], trace_s=rec["trace_s"])
+
+
+def phase_dryrun_vs_card(torch, get_arch, T, S, quantize_params,
+                         get_policy, PB, dev):
+    """Phase 45 (module note). Returns (the decode step's matmul launches
+    by variant on the card's datapath, the summary)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.optim.adamw import AdamWConfig
+    t_phase = time.perf_counter()
+    one = MeshShape(("data", "model"), (1, 1))
+    cfg = get_arch(TRAIN_ARCH)
+    out = {}
+
+    # (a) training: path 23's step
+    B, Sq, mb = (DRYRUN_TRAIN[k] for k in ("global_batch", "seq_len",
+                                            "microbatches"))
+    rec = D.dryrun_cell(TRAIN_ARCH, ShapeConfig("train_path23", Sq, B,
+                                                "train"),
+                        mesh=one, microbatches=mb)
+    check(rec["status"] == "ok", f"dry run of the train step: {rec}")
+    cfg_d = D._tune_for_dryrun(cfg, ShapeConfig("t", Sq, B, "train"))
+    opt = AdamWConfig(**TRAIN_OPT)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = S.init_train_state(cfg_d, opt, g, device=dev)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, Sq), generator=g,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    args_bytes = _tree_bytes(state) + _tree_bytes(batch)
+    step_d = S.make_train_step(cfg_d, opt, microbatches=mb)
+    _, peak = _card_peak(torch, lambda: step_d(state, batch))
+    step_c = S.make_train_step(cfg, opt, microbatches=mb)
+    ms = _step_ms(torch, lambda: step_c(state, batch), DRYRUN_TIMED_STEPS)
+    m = rec["memory"]
+    out["train"] = _dryrun_vs_card(
+        torch, f"{TRAIN_ARCH} train {B} x {Sq} ({mb} microbatches)", rec,
+        args_bytes, m["argument_size_in_bytes"] + m["temp_size_in_bytes"],
+        peak + args_bytes, ms)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # (b) decode under default_serve_mix
+    B, Sc = DRYRUN_DECODE["global_batch"], DRYRUN_DECODE["seq_len"]
+    shape = ShapeConfig("decode_check", Sc, B, "decode")
+    rec = D.dryrun_cell(TRAIN_ARCH, shape, mesh=one)
+    check(rec["status"] == "ok", f"dry run of the decode step: {rec}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    fp = T.init_params(cfg, g, dtype=torch.bfloat16, device=dev)
+    qp, _ = quantize_params(fp, get_policy("default_serve_mix"))
+    del fp
+    cache = T.init_cache(cfg, B, Sc, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B,), generator=g,
+                                     device=dev, dtype=torch.int32),
+             "position": torch.full((B,), Sc // 2, dtype=torch.int32,
+                                    device=dev)}
+    args_bytes = _tree_bytes(qp) + _tree_bytes(cache) + _tree_bytes(batch)
+    _, dec_d = S.make_serve_steps(D._tune_for_dryrun(cfg, shape))
+    _, peak = _card_peak(torch, lambda: dec_d(qp, cache, batch))
+    _, dec_c = S.make_serve_steps(cfg)
+    PB.reset_launches()
+    logits, _ = dec_c(qp, cache, batch)
+    torch.cuda.synchronize()
+    launches = dict(PB.launches)
+    check(bool(torch.isfinite(logits).all()) and sum(launches.values()) > 0,
+          f"the card's decode step: finite logits and kernel launches "
+          f"({launches})")
+    ms = _step_ms(torch, lambda: dec_c(qp, cache, batch), DRYRUN_TIMED_STEPS)
+    m = rec["memory"]
+    out["decode"] = _dryrun_vs_card(
+        torch, f"{TRAIN_ARCH} decode B={B} over {Sc} slots "
+        "(default_serve_mix)", rec, args_bytes,
+        m["argument_size_in_bytes"] + m["temp_size_in_bytes"],
+        peak + args_bytes, ms)
+    out["decode"]["launches_per_step"] = launches
+    del qp, cache
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[dryrun-card] phase 45 in {out['wall_s']:.1f}s", flush=True)
+    return launches, out
+
+
+def compress_rank(seed, error_steps, shapes):
+    """One rank of phase 46: this rank's gradients of ``shapes`` (seeded
+    by its rank) on its device, ``compressed_psum`` for ``error_steps``
+    steps, each fed the last one's error state; every step's (reduced,
+    error) as numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.compress import compressed_psum
+    rank, dev = SH.serve_tp_rank(), SH.serve_tp_group().device
+    rng = np.random.default_rng(seed + rank)
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for k, s in shapes.items()}
+    err, out = None, []
+    for _ in range(error_steps):
+        red, err = compressed_psum(grads, error=err)
+        out.append(({k: v.cpu().numpy() for k, v in red.items()},
+                    {k: v.cpu().numpy() for k, v in err.items()}))
+    return out
+
+
+def phase_compress(torch, np):
+    """Phase 46 (module note): two steps, the second fed the first's error
+    state. Each rank's error state is its corrected gradient's rounding
+    residual, bit for bit; the mean is the plain mean of the corrected
+    gradients within one bf16 rounding of each cast and of the sum (a
+    relative 2^-8 each: 2^-7 of the mean magnitude)."""
+    from repro_torch.distributed.group import TPGroup
+    t0 = time.perf_counter()
+    with TPGroup(2, ["cuda:0"] * 2, timeout_s=TP_TIMEOUT_S) as group:
+        print(f"[compress] {group.describe()}", flush=True)
+        got = group.map(compress_rank, [(46, 2, COMPRESS_SHAPES)] * 2)
+    grads = []
+    for rank in range(2):
+        rng = np.random.default_rng(46 + rank)
+        grads.append({k: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)) for k, s in COMPRESS_SHAPES.items()})
+    worst = 0.0
+    for step in range(2):
+        for k in COMPRESS_SHAPES:
+            corr = [grads[r][k] + (0 if step == 0 else torch.from_numpy(
+                got[r][0][1][k])) for r in range(2)]
+            for r in range(2):
+                want = corr[r] - corr[r].to(torch.bfloat16).to(torch.float32)
+                check(np.array_equal(got[r][step][1][k], want.numpy()),
+                      f"step {step}: rank {r}'s error state of {k} is not "
+                      "its rounding residual")
+            red = got[0][step][0][k]
+            check(np.array_equal(red, got[1][step][0][k]),
+                  "the ranks' means differ")
+            mean = ((corr[0] + corr[1]) / 2).numpy()
+            bound = 2.0 ** -7 * (np.abs(corr[0]) + np.abs(corr[1])).numpy() / 2
+            check(bool(np.all(np.abs(red - mean) <= bound)),
+                  f"step {step}: the compressed mean of {k} is off by more "
+                  "than its bf16 roundings")
+            worst = max(worst, float(np.max(np.abs(red - mean))))
+    wall = time.perf_counter() - t0
+    print(f"[compress] 2 ranks on cuda:0, 2 steps: every error state the "
+          f"rank's rounding residual bit for bit; the means within their "
+          f"bf16 roundings of the plain mean (max abs {worst:.3e}); "
+          f"{wall:.1f}s", flush=True)
+    return {"max_abs_vs_plain_mean": worst, "wall_s": wall}
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -4357,6 +4698,7 @@ def main() -> None:
     from repro_torch.serving.disagg import DisaggEngine
     from repro_torch.serving.engine import (Engine, EngineSaturated,
                                             ServeConfig)
+    from repro_torch.training import steps as S
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4498,6 +4840,13 @@ def main() -> None:
         torch, np, get_arch, T, quantize_params, variant_counts, get_policy,
         Engine, ServeConfig, PB, PA, Q, dev)
 
+    # slice 13: the dry run, its check against real steps, the compressed
+    # gradient all-reduce
+    slice13 = {"cells": phase_dryrun_cells(torch, root)}
+    launches13, slice13["card"] = phase_dryrun_vs_card(
+        torch, get_arch, T, S, quantize_params, get_policy, PB, dev)
+    slice13["compress"] = phase_compress(torch, np)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -4515,7 +4864,8 @@ def main() -> None:
                    **{p: launches7[p][v] for p in launches7},
                    **{p: launches8[p][v] for p in launches8},
                    **{p: launches11[p][v] for p in launches11},
-                   **{p: launches12[p][v] for p in launches12}}
+                   **{p: launches12[p][v] for p in launches12},
+                   "dryrun_check_decode": launches13.get(v, 0)}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -4610,6 +4960,7 @@ def main() -> None:
     print(f"[slice10] summary: {json.dumps(slice10)}", flush=True)
     print(f"[slice11] summary: {json.dumps(slice11)}", flush=True)
     print(f"[slice12] summary: {json.dumps(slice12)}", flush=True)
+    print(f"[slice13] summary: {json.dumps(slice13)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

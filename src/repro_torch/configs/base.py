@@ -13,6 +13,10 @@ families (``mamba2-2.7b``, ssm; ``zamba2-1.2b``, hybrid) and the two
 embedding-input families (``qwen2-vl-72b``, vlm with M-RoPE;
 ``musicgen-large``, audio with sinusoidal positions): every arch of the
 reference.
+
+``ShapeConfig`` and ``SHAPES`` are the reference's four dry-run cells;
+``input_specs`` gives a cell's model inputs as shape-only stand-ins
+(tensors on the meta device, which hold no memory).
 """
 from __future__ import annotations
 
@@ -142,3 +146,62 @@ def get_arch(arch_id: str, reduced: bool = False) -> ModelConfig:
         importlib.import_module(f"repro_torch.configs.{mod}")
     spec = _REGISTRY[arch_id]
     return spec.reduced if reduced else spec.config
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, with the reference's reason
+    where it does not."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: 524k-token decode needs "
+                       "sub-quadratic attention (skip per DESIGN.md §4)")
+    return True, ""
+
+
+def shape_only(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A stand-in of ``shape`` and ``dtype`` that holds no memory."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig,
+                shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Shape-only stand-ins for every model input of this cell, the
+    reference's shapes and dtypes. The modality frontends of vlm/audio are
+    stubs: embeddings replace the token ids."""
+    B, S = shape.global_batch, shape.seq_len
+    dt, i32 = torch_dtype(cfg.dtype), torch.int32
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(shape.kind)
+    if shape.kind == "decode":
+        # one new token against a cache of seq_len
+        if cfg.embed_input:
+            specs["tokens"] = shape_only((B,), i32)
+        else:
+            specs["embeds"] = shape_only((B, cfg.d_model), dt)
+        specs["position"] = shape_only((B,), i32)
+        return specs
+    if cfg.embed_input:
+        specs["tokens"] = shape_only((B, S), i32)
+    else:
+        specs["embeds"] = shape_only((B, S, cfg.d_model), dt)
+    if shape.kind == "train":
+        specs["labels"] = shape_only((B, S), i32)
+    if cfg.pos_emb == "mrope":
+        specs["positions"] = shape_only((3, B, S), i32)
+    return specs

@@ -138,3 +138,37 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def spec_like_quantized(params_spec: Dict[str, Any], policy: QuantPolicy,
+                        expert_stack_paths: Tuple[str, ...] = (
+                            _EXPERT_STACK,)):
+    """``quantize_params`` on shape-only stand-ins (meta tensors, as
+    ``configs.base.shape_only`` makes): each quantizable leaf becomes a
+    QTensor whose payloads are meta tensors of the packed shapes and
+    dtypes, payload for payload the reference's (an expert stack packed
+    along E*K). Nothing is allocated."""
+    from repro_torch.configs.base import shape_only
+    from repro_torch.core.formats import get_format, pick_fallback
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        path = prefix[:-1]
+        if len(node.shape) < 2 or not _is_quantizable_path(path):
+            return node
+        K, N = node.shape[-2], node.shape[-1]
+        variant = policy.variant_for(path, K, N)
+        if variant is None:
+            return node
+        variant = pick_fallback(variant, K)
+        expert = (any(f in path for f in expert_stack_paths)
+                  and len(node.shape) >= 3)
+        lead = tuple(node.shape[:-3] if expert else node.shape[:-2])
+        keff = node.shape[-3] * K if expert else K
+        data = {a.name: shape_only(lead + (keff // a.k_div, N),
+                                   getattr(torch, a.dtype))
+                for a in get_format(variant).arrays}
+        return Q.QTensor(variant, (keff, N), data)
+
+    return walk(params_spec)

@@ -1,11 +1,37 @@
-"""Serving-side tensor and expert parallelism: the plan and the shard rules.
+"""Sharding rules: the training half (FSDP x TP specs, activation
+constraints) and serving-side tensor and expert parallelism.
 
-Counterpart of the serve half of ``repro.distributed.sharding``. The
-training-side rules (parameter, optimizer-state and batch specs, the
-activation constraints) are not here: they serve the dry run, which the
-port does not have yet.
+Counterpart of ``repro.distributed.sharding``.
 
-Rules, as the reference's (one "model" axis of ``size`` ranks):
+Training half (the dry run's, ``launch/dryrun.py``). The rules take only
+axis names and sizes (``MeshShape``: a ``DeviceMesh`` or anything with
+``axis_names`` and ``shape``), so they run with no process group. A spec
+is a tuple with one entry per tensor dim: ``None``, an axis name, or a
+tuple of axis names (major first), equal to ``tuple(PartitionSpec)`` of
+the reference's rule (a one-name tuple is the bare name, as JAX
+normalizes it). Conventions, as the reference's:
+
+* data-parallel axes: ("data",) on one pod, ("pod", "data") on several;
+  under ``tp_off`` the "model" axis joins them (pure FSDP).
+* weights: lanes over "model", K rows over dp (FSDP); the down/out
+  projections are row-parallel (K over "model", lanes over dp). MoE
+  experts: EP over "model" when E divides it, else per-expert FFN TP.
+* packed QTensors (serve): lanes over "model", or, for a row-parallel
+  weight, the packed K rows when K % (|model| * 256) == 0; else
+  replicated. ``param_specs`` gives a ``QSpec`` (one spec a payload).
+* caches: batch over dp, then kv heads over "model" (``kv_shard``: auto,
+  heads, head_dim, seq or replicated); B = 1 shards the sequence over dp.
+
+Every rule checks divisibility and degrades to replication.
+``named(spec, mesh)`` turns a spec into DTensor placements on a
+``DeviceMesh``. The model code's two hooks: ``constrain(x, "dp", None,
+"model")`` and ``gather_dp(w)`` (an FSDP weight gathered at its use) are
+the identity outside ``activation_axes(mesh)``; inside it a DTensor is
+redistributed to the resolved placements. The functions a dry run runs
+on each rank's shards are ``launch/partition.py``'s.
+
+Serving half. Rules, as the reference's (one "model" axis of ``size``
+ranks):
 
 * attn: wq/wk/wv/wo shard their lanes (the output axis) when the head
   counts and ``d_model`` divide ``size``; the KV cache and the prefix
@@ -28,11 +54,11 @@ Everything else (embeddings, norms, the LM head, biases added after a
 gather) is replicated, and every rule that does not divide falls back to
 replication.
 
-Where the reference returns a ``PartitionSpec`` pytree, the port returns
-a rule per leaf: ``None`` (replicate) or the sharded axis, counted from
-the end for parameters (-1 lanes, -2 K rows, -3 experts: a leading
-stacked-layer axis passes through) and from the front for caches (3, the
-kv-head axis). A packed ``QTensor`` has one rule for all its payloads.
+For serving, where the reference returns a ``PartitionSpec`` pytree, the
+port returns a rule per leaf: ``None`` (replicate) or the sharded axis,
+counted from the end for parameters (-1 lanes, -2 K rows, -3 experts: a
+leading stacked-layer axis passes through) and from the front for caches
+(3, the kv-head axis). A packed ``QTensor`` has one rule for all its payloads.
 ``localize_serve_params`` applies the rules: it returns one rank's views
 of the tree (no copies), with each sharded ``QTensor``'s logical (K, N)
 cut to the local extent. A lane or row shard of a ``QTensor`` holds the
@@ -46,12 +72,404 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import get_format
 from repro_torch.core.quantize import QTensor
+
+# ---------------------------------------------------------------------------
+# training half: axis roles, parameter / optimizer / batch / cache specs
+#
+# tp_off() retargets the "model" axis as extra data parallelism (pure
+# FSDP); the physical mesh is unchanged, only the role mapping moves. The
+# contexts push frames on module-level stacks and each exit pops back to
+# its own enter's depth, so they are reentrant and an interleaved exit
+# leaves a coherent state, as the reference's.
+# ---------------------------------------------------------------------------
+_TP_STACK = [False]
+
+
+class _StackedContext:
+    """Reentrant context manager over a module-level frame stack."""
+
+    _stack: list          # subclasses point this at their frame stack
+
+    def __init__(self):
+        self._depths = []
+
+    def _frame(self):
+        raise NotImplementedError
+
+    def __enter__(self):
+        self._stack.append(self._frame())
+        self._depths.append(len(self._stack))
+        return self
+
+    def __exit__(self, *exc):
+        if not self._depths:
+            raise RuntimeError(
+                f"{type(self).__name__}.__exit__ without matching __enter__")
+        del self._stack[self._depths.pop() - 1:]
+        return False
+
+
+class tp_off(_StackedContext):
+    def __init__(self):
+        super().__init__()
+        self._stack = _TP_STACK
+
+    def _frame(self):
+        return True
+
+
+def _tp_is_off() -> bool:
+    return _TP_STACK[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes of a mesh, without devices or a process
+    group: what the spec rules read (a ``DeviceMesh`` works as well)."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``MeshShape`` or a ``DeviceMesh``."""
+    if isinstance(mesh, MeshShape):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh_shape(mesh))
+
+
+def model_axis(mesh) -> Optional[str]:
+    if _tp_is_off() or "model" not in _names(mesh):
+        return None
+    return "model"
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    names = _names(mesh)
+    axes = [a for a in ("pod", "data") if a in names]
+    if _tp_is_off() and "model" in names:
+        axes.append("model")
+    return tuple(axes)
+
+
+def axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _div(n: int, mesh, axes) -> bool:
+    return n % axis_size(mesh, axes) == 0
+
+
+def _spec(*dims) -> Tuple:
+    """A spec as ``tuple(PartitionSpec(*dims))`` gives it: a one-name
+    tuple becomes the bare name, an empty one None."""
+    out = []
+    for d in dims:
+        if isinstance(d, tuple):
+            d = d[0] if len(d) == 1 else (d or None)
+        out.append(d)
+    return tuple(out)
+
+
+# down/out projections are row-parallel (K over model): their input is
+# already model-sharded, so the forward emits one d_model-sized reduction
+# instead of gathering the ff-sized hidden (Megatron's pairing with the
+# column-parallel up/gate/qkv)
+_ROW_PARALLEL = ("w_down", "wo", "c_proj", "out_proj", "proj_out")
+
+
+def _is_row_parallel(path: str) -> bool:
+    return path.split("/")[-1] in _ROW_PARALLEL
+
+
+def _spec_for_matrix(shape, mesh, path: str, *, fsdp: bool) -> Tuple:
+    """(lead..., K, N) weight: column-parallel (N over model, K over dp)
+    by default; row-parallel (K over model, N over dp) for down/out."""
+    dp, m = dp_axes(mesh), model_axis(mesh)
+    dims = [None] * len(shape)
+    if _is_row_parallel(path):
+        if m and _div(shape[-2], mesh, m):
+            dims[-2] = m
+        if fsdp and _div(shape[-1], mesh, dp):
+            dims[-1] = dp
+    else:
+        if m and _div(shape[-1], mesh, m):
+            dims[-1] = m
+        if fsdp and _div(shape[-2], mesh, dp):
+            dims[-2] = dp
+    return _spec(*dims)
+
+
+def _spec_for_experts(shape, mesh, path: str, *, fsdp: bool) -> Tuple:
+    """(lead..., E, K, N): EP over model if divisible, else FFN-TP."""
+    dp, m = dp_axes(mesh), model_axis(mesh)
+    if not (m and _div(shape[-3], mesh, m)):
+        return _spec_for_matrix(shape, mesh, path, fsdp=fsdp)
+    dims = [None] * len(shape)
+    dims[-3] = m                                 # EP
+    if fsdp and _div(shape[-2], mesh, dp):
+        dims[-2] = dp
+    return _spec(*dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSpec:
+    """The specs of a packed QTensor's payloads (the reference gives a
+    QTensor whose payloads are PartitionSpecs)."""
+    variant: str
+    shape: Tuple[int, int]
+    data: Dict[str, Tuple]
+
+
+def param_specs(params, mesh, *, fsdp: bool = True) -> Any:
+    """The tree of specs matching ``params`` (tensors, shape-only
+    stand-ins or QTensors; a QTensor gives a ``QSpec``)."""
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        path = prefix[:-1]
+        if isinstance(node, QTensor):
+            # packed payloads: column-parallel = lanes over model;
+            # row-parallel = packed K rows over model, only where every
+            # shard holds whole super-blocks, else replicated
+            m = model_axis(mesh)
+            row = _is_row_parallel(path) and "moe/" not in path
+            aligned = m is not None and node.shape[0] % (
+                axis_size(mesh, m) * 256) == 0
+
+            def qspec(arr):
+                dims = [None] * arr.dim()
+                if row:
+                    if aligned:
+                        dims[-2] = m
+                elif m and _div(arr.shape[-1], mesh, m):
+                    dims[-1] = m
+                return _spec(*dims)
+            return QSpec(node.variant, tuple(node.shape),
+                         {k: qspec(v) for k, v in node.data.items()})
+        shape = tuple(node.shape)
+        parts = path.split("/")
+        leaf = parts[-1]
+        is_norm = (any(p.startswith("ln") or "norm" in p for p in parts)
+                   or "norm" in leaf)
+        if (len(shape) <= 1 or is_norm
+                or leaf.startswith(("conv", "A_log", "D", "dt_bias",
+                                    "b_", "bias"))):
+            return _spec()              # replicated (stacked norm scales
+            # included: their leading dim is the layer axis)
+        if "moe/w_" in path and len(shape) >= 3:
+            return _spec_for_experts(shape, mesh, path, fsdp=fsdp)
+        if leaf in ("wte", "wpe"):
+            # vocab over model (a tied head emits vocab-sharded logits),
+            # features over dp
+            dp, m = dp_axes(mesh), model_axis(mesh)
+            row = m if (m and _div(shape[0], mesh, m)) else None
+            col = dp if fsdp and _div(shape[1], mesh, dp) else None
+            return _spec(*([None] * (len(shape) - 2) + [row, col]))
+        return _spec_for_matrix(shape, mesh, path, fsdp=fsdp)
+
+    return walk(params)
+
+
+def opt_state_specs(pspecs) -> Dict[str, Any]:
+    return dict(m=pspecs, v=pspecs, step=_spec())
+
+
+def batch_specs(batch: Dict[str, Any], mesh) -> Dict[str, Tuple]:
+    dp = dp_axes(mesh)
+    out = {}
+    for k, v in batch.items():
+        nd = len(v.shape)
+        if k == "positions" and nd == 3:         # (3, B, S) M-RoPE
+            out[k] = _spec(None, dp if _div(v.shape[1], mesh, dp) else None,
+                           None)
+        elif nd >= 1:
+            bdp = dp if _div(v.shape[0], mesh, dp) else None
+            out[k] = _spec(*((bdp,) + (None,) * (nd - 1)))
+        else:
+            out[k] = _spec()
+    return out
+
+
+KV_SHARD_MODES = ("auto", "heads", "head_dim", "seq", "replicated")
+
+
+def cache_specs(cache: Dict[str, Any], mesh,
+                kv_shard: str = "auto") -> Dict[str, Tuple]:
+    """Decode-cache specs. kv_shard: auto | heads | head_dim | seq |
+    replicated ("seq" is the flash-decoding partial-softmax layout)."""
+    if kv_shard not in KV_SHARD_MODES:
+        raise ValueError(f"kv_shard {kv_shard!r}; known: {KV_SHARD_MODES}")
+    dp, m = dp_axes(mesh), model_axis(mesh)
+
+    def bdp(B, T=None):
+        """Batch over dp when divisible; else (B = 1 long context) the
+        cache sequence over dp."""
+        if _div(B, mesh, dp):
+            return dp, None
+        if T is not None and _div(T, mesh, dp):
+            return None, dp
+        return None, None
+
+    # one kv mode for k/v and their int8 scales; auto prefers heads, then
+    # the sequence (head_dim only when asked: GQA's q heads against a
+    # head_dim-sharded cache re-gather the whole cache every step)
+    kv_mode = "replicated"
+    if "k" in cache and m:
+        ks = cache["k"].shape
+        kv_mode = kv_shard
+        if kv_mode == "auto":
+            kv_mode = ("heads" if _div(ks[3], mesh, m)
+                       else "seq" if _div(ks[2], mesh, m) else "replicated")
+
+    out: Dict[str, Tuple] = {}
+    for k, v in cache.items():
+        shape = v.shape
+        if k in ("k", "v", "k_scale", "v_scale"):
+            # (L|napp, B, T, KH, Dh), scales (L, B, T, KH)
+            b_ax, t_ax = bdp(shape[1], shape[2])
+            dims = [None, b_ax, t_ax] + [None] * (len(shape) - 3)
+            if kv_mode == "heads":
+                dims[3] = m
+            elif kv_mode == "head_dim" and len(shape) == 5:
+                dims[4] = m
+            elif kv_mode == "seq" and t_ax is None:
+                dims[2] = m
+            out[k] = _spec(*dims)
+        elif k == "pos":                         # (B, T)
+            out[k] = _spec(*bdp(shape[0], shape[1]))
+        elif k == "state":                       # (L, B, H, P, N)
+            dims = [None, bdp(shape[1])[0], None, None, None]
+            if m and _div(shape[2], mesh, m):
+                dims[2] = m
+            out[k] = _spec(*dims)
+        elif k == "conv":                        # (L, B, W-1, C)
+            out[k] = _spec(None, bdp(shape[1])[0], None,
+                           m if (m and _div(shape[3], mesh, m)) else None)
+        else:
+            out[k] = _spec()
+    return out
+
+
+def named(spec: Tuple, mesh) -> list:
+    """A spec -> the DTensor placements on ``mesh`` (a ``DeviceMesh``):
+    mesh dim i is ``Shard(d)`` where tensor dim d's entry names it, else
+    ``Replicate()``. A dim sharded over several axes names them major
+    first, which is DTensor's order over mesh dims, so the entry must
+    follow the mesh's axis order (("pod", "data") does)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = _names(mesh)
+    placements = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                             f"axis order {names}")
+        for i in idx:
+            placements[i] = Shard(d)
+    return placements
+
+
+def local_shape(shape, spec: Tuple, mesh) -> Tuple[int, ...]:
+    """One rank's shard shape of a tensor of ``shape`` under ``spec``."""
+    return tuple(n // axis_size(mesh, e) for n, e in
+                 zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+# ---------------------------------------------------------------------------
+# activation constraints inside model code
+#
+# Model code calls constrain(x, "dp", None, "model") with symbolic axes;
+# activation_axes(mesh) resolves them. Outside it constrain returns its
+# argument, so every path that does not run a dry run is unchanged.
+# ---------------------------------------------------------------------------
+_ACT_STACK = [None]
+
+
+class activation_axes(_StackedContext):
+    def __init__(self, mesh):
+        super().__init__()
+        self._stack = _ACT_STACK
+        self.mesh = mesh
+        self.dp = dp_axes(mesh)
+        self.model = model_axis(mesh)
+        self.dp_size = axis_size(mesh, self.dp)
+        self.model_size = axis_size(mesh, self.model) if self.model else 1
+
+    def _frame(self):
+        return self
+
+
+def constrain(x, *dims):
+    """Redistribute a DTensor to the resolved symbolic axes ('dp',
+    'model', None a dim); a dim that does not divide stays unsharded.
+    The identity outside ``activation_axes`` and on a plain tensor."""
+    act = _ACT_STACK[-1]
+    if act is None or not hasattr(x, "redistribute"):
+        return x
+    resolved = []
+    for size, d in zip(x.shape, dims):
+        if d == "dp" and act.dp and size % act.dp_size == 0:
+            resolved.append(act.dp)
+        elif d == "model" and act.model and size % act.model_size == 0:
+            resolved.append(act.model)
+        else:
+            resolved.append(None)
+    placements = named(_spec(*resolved), x.device_mesh)
+    if tuple(placements) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def gather_dp(w):
+    """A weight at its use under a dry run: its data-parallel (FSDP)
+    shards all-gathered, its "model" sharding kept (the reference's
+    convention: "GSPMD all-gathers at use"); in the backward pass the
+    gather's gradient is the reduce-scatter of the weight's gradient. The
+    identity outside ``activation_axes`` and on a plain tensor."""
+    act = _ACT_STACK[-1]
+    if act is None or not hasattr(w, "device_mesh"):
+        return w
+    from torch.distributed.tensor import Replicate
+    names = w.device_mesh.mesh_dim_names
+    pl = [Replicate() if p.is_shard() and names[i] in act.dp else p
+          for i, p in enumerate(w.placements)]
+    if pl == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
 
 # the sharded axis of a parameter leaf, counted from its end
 LANES, ROWS, EXPERTS = -1, -2, -3

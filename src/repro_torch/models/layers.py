@@ -32,8 +32,9 @@ import torch.nn.functional as Fn
 
 from repro_torch.core import calibrate as CAL
 from repro_torch.core.quantize import QTensor, dequantize
-from repro_torch.distributed.sharding import (serve_tp_group, serve_tp_plan,
-                                              serve_tp_rank)
+from repro_torch.distributed.sharding import (constrain, gather_dp,
+                                              serve_tp_group,
+                                              serve_tp_plan, serve_tp_rank)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.prefill_attn import prefill_attn_fused
 
@@ -44,7 +45,7 @@ def dense(x: torch.Tensor, w, *, impl: str = "auto") -> torch.Tensor:
     """MatMul against either a plain tensor or a packed QTensor."""
     if isinstance(w, QTensor):
         return kops.bfp_matmul(x, w, impl=impl)
-    return x @ w.to(x.dtype)
+    return x @ gather_dp(w).to(x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -436,9 +437,12 @@ def swiglu_mlp(x, p: Dict, *, impl="auto"):
     CAL.tap(("mlp/w_gate", "mlp/w_up"), x)
     g = dense(x, p["w_gate"], impl=impl)
     u = dense(x, p["w_up"], impl=impl)
-    h = Fn.silu(g) * u
+    # the ffn hidden over "model"; the row-parallel down-projection's
+    # output replicated on d, so its reduction happens here, in the
+    # activation dtype (sharding.constrain: the identity outside a dry run)
+    h = constrain(Fn.silu(g) * u, "dp", None, "model")
     CAL.tap("mlp/w_down", h)
-    return dense(h, p["w_down"], impl=impl)
+    return constrain(dense(h, p["w_down"], impl=impl), "dp", None, None)
 
 
 def gelu_mlp(x, p: Dict, *, impl="auto"):
@@ -457,9 +461,9 @@ def gelu_mlp(x, p: Dict, *, impl="auto"):
     h = dense(x, p["c_fc"], impl=impl)
     if "b_fc" in p:
         h = h + p["b_fc"].to(h.dtype)
-    h = Fn.gelu(h, approximate="tanh")
+    h = constrain(Fn.gelu(h, approximate="tanh"), "dp", None, "model")
     CAL.tap("mlp/c_proj", h)
-    o = dense(h, p["c_proj"], impl=impl)
+    o = constrain(dense(h, p["c_proj"], impl=impl), "dp", None, None)
     if "b_proj" in p:
         o = o + p["b_proj"].to(o.dtype)
     return o

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.core import calibrate as CAL
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import dense, rmsnorm
 
 
@@ -164,7 +165,7 @@ def mamba2_forward(h, p: Dict, cfg, *, conv_state=None, ssm_state=None,
     if valid is not None:
         dt = torch.where(valid[..., None], dt, torch.zeros_like(dt))
     A = -torch.exp(p["A_log"].to(torch.float32))
-    x = x.reshape(Bsz, S, H, P)
+    x = constrain(x.reshape(Bsz, S, H, P), "dp", None, "model", None)
     if ssm_state is None:
         ssm_state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
                                 device=h.device)

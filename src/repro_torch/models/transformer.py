@@ -243,7 +243,7 @@ def _logits(params, cfg: ModelConfig, h, impl="auto"):
         # the f32 product with the float embedding, as the reference's
         # einsum (no packed head, no kernel, no calibration tap); ``.to``
         # copies nothing where ``wte`` is f32 already
-        wte = params["wte"]
+        wte = SH.gather_dp(params["wte"])
         return torch.matmul(h.to(torch.float32),
                             wte.to(torch.float32).t())
     CAL.tap("lm_head", h)
@@ -278,16 +278,19 @@ def _qkv(a_in, lp, cfg: ModelConfig, impl):
         q = L.dense(a_in, attn["wq"], impl=impl)
         k = L.dense(a_in, attn["wk"], impl=impl)
         v = L.dense(a_in, attn["wv"], impl=impl)
-    q, k = q.reshape(B, S, H, Dh), k.reshape(B, S, KH, Dh)
+    q = SH.constrain(q.reshape(B, S, H, Dh), "dp", None, "model", None)
+    k = SH.constrain(k.reshape(B, S, KH, Dh), "dp", None, "model", None)
+    v = SH.constrain(v.reshape(B, S, KH, Dh), "dp", None, "model", None)
     if cfg.qk_norm:
         # per-head RMSNorm on q and k, before RoPE
         q = L.rmsnorm(q, attn["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, attn["k_norm"], cfg.norm_eps)
-    return q, k, v.reshape(B, S, KH, Dh)
+    return q, k, v
 
 
 def _attn_out(o, lp, cfg, impl):
     B, S = o.shape[:2]
+    o = SH.constrain(o, "dp", None, "model", None)
     o = o.reshape(B, S, o.shape[2] * o.shape[3])    # local heads * Dh
     attn = lp["attn"]
     if _tp_attn_shards(cfg) > 1:
@@ -304,10 +307,11 @@ def _attn_out(o, lp, cfg, impl):
                                impl=impl)
     if cfg.fused_qkv:
         CAL.tap("attn/c_proj", o)
-        out = L.dense(o, attn["c_proj"], impl=impl)
+        out = SH.constrain(L.dense(o, attn["c_proj"], impl=impl),
+                           "dp", None, None)
         return out + attn["b_proj"].to(out.dtype)
     CAL.tap("attn/wo", o)
-    return L.dense(o, attn["wo"], impl=impl)
+    return SH.constrain(L.dense(o, attn["wo"], impl=impl), "dp", None, None)
 
 
 def _full_heads(cfg: ModelConfig, fn, q, *kv, **kw):
@@ -658,8 +662,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], *,
     _check_family(cfg)
     impl = cfg.kernel_impl
     B = position.shape[0]
-    h = _embed(params, cfg, tokens, position,
-               embeds)[:, None, :]                         # (B,1,d)
+    h = SH.constrain(_embed(params, cfg, tokens, position, embeds),
+                     "dp", None)[:, None, :]               # (B,1,d)
     if cfg.family in _RECURRENT:
         h = _recurrent_decode(params, cfg, cache, h, position, live, impl)
         h = L.norm(h, params["ln_f"], cfg.norm_type, cfg.norm_eps)
@@ -911,7 +915,10 @@ def forward_seq(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     if positions is None:
         positions = seq_pos
     pos2d = positions[0] if positions.dim() == 3 else positions
-    h = _embed(params, cfg, tokens, pos2d, embeds)
+    # the residual stream over the batch (sharding.constrain: the
+    # identity outside a dry run, where it anchors DTensor's layout)
+    h = SH.constrain(_embed(params, cfg, tokens, pos2d, embeds),
+                     "dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
 

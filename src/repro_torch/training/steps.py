@@ -37,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -65,9 +66,10 @@ def _xent_chunk(hc, lc, head, tie_wte):
     """One chunk's (loss sum, z sum, valid count); label -1 is padding."""
     if tie_wte is not None:
         logits = torch.matmul(hc.to(torch.float32),
-                              tie_wte.to(torch.float32).t())
+                              SH.gather_dp(tie_wte).to(torch.float32).t())
     else:
-        logits = torch.matmul(hc, head.to(hc.dtype)).to(torch.float32)
+        logits = torch.matmul(hc, SH.gather_dp(head).to(hc.dtype)).to(
+            torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     valid = (lc >= 0).to(torch.float32)
     ll = torch.gather(logits, -1, lc.clamp_min(0).long()[:, None])[:, 0]
@@ -94,9 +96,14 @@ def chunked_xent(h: torch.Tensor, head, labels: torch.Tensor, *,
         lf = torch.cat([lf, torch.full((pad,), -1, dtype=lf.dtype,
                                        device=lf.device)])
         n += pad
+    # chunk i is row i of (n/c, c, ...), as the reference's scan takes
+    # it; a dry run lays each chunk's tokens over the data-parallel ranks
+    # (sharding.constrain: the identity elsewhere)
+    hf = SH.constrain(hf.reshape(n // c, c, d), None, "dp", None)
+    lf = SH.constrain(lf.reshape(n // c, c), None, "dp")
     sums = [torch.zeros((), dtype=torch.float32, device=h.device)] * 3
-    for c0 in range(0, n, c):
-        args = (hf[c0:c0 + c], lf[c0:c0 + c], head, tie_wte)
+    for i in range(n // c):
+        args = (hf[i], lf[i], head, tie_wte)
         if torch.is_grad_enabled():
             part = torch.utils.checkpoint.checkpoint(_xent_chunk, *args,
                                                      use_reentrant=False)
