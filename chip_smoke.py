@@ -146,7 +146,7 @@ Phases, each of which exits nonzero on failure:
    warm chunk (prefix rows scattered from the pool) are held against the
    plain version and timed.
 19. speculative decoding, slice 6: path 1's weights, 8 requests of
-   6-token prompts, 32 new tokens, 4 slots, ``decode_chunk=16``,
+   6-token prompts, 16 new tokens, 4 slots, ``decode_chunk=16``,
    ``cache_len=64``, ``draft_k=4``: ngram/scan, ngram/batched and
    self (2 layers)/scan, greedy. Scan runs' tokens equal a plain engine's
    and every verify column is a 155-launch forward; the batched run
@@ -380,16 +380,40 @@ Phases, each of which exits nonzero on failure:
    the decode, whose launches are counted) is timed beside the
    roofline's ``step_time_s``.
 46. ``distributed/compress.py::compressed_psum`` over 2 ranks on cuda:0
-   (gloo, staged through the host), 2 steps: each rank's error state is
-   its rounding residual bit for bit, the second step fed the first's;
-   both ranks' means equal, within their bf16 roundings of the plain
-   mean.
+   (gloo, staged through the host; the group phases 47-48 use next), 2
+   steps: each rank's error state is its rounding residual bit for bit,
+   the second step fed the first's; both ranks' means equal, within
+   their bf16 roundings of the plain mean.
+47. disaggregated serving over tensor-parallel engines, slice 14 (path
+   35): full-width, full-depth tinyllama-1.1b (22 layers,
+   paper_llama_mix, ``attn_impl="fused"``) on phase 39's traffic, through
+   a 1P+1D and a 2P+2D ``DisaggEngine`` at tp=2 ("padded") with both
+   ranks on cuda:0 (gloo, host-staged; NCCL between cards is not measured
+   here), greedy, and a 1P+1D at temperature 0.8: each run's tokens
+   equal the monolithic tp=1 engine's and the tp=1 ``DisaggEngine``'s
+   (the same ServeConfig and seed); the tp=2 prefill tier's exported
+   pages equal the tp=1 tier's bit for bit; rank 0 (and, read through the
+   group, rank 1) launches 45 q2_k + 110 q3_k matmuls a forward and 22
+   attention kernels a prefill-chunk forward on both tiers; every rank's
+   ``torch.cuda.memory_allocated`` with the 2P+2D engine serving stays
+   within its reading before plus four workers' rings and page pools
+   (each half of what 1P+1D adds), plus 5% (one weight shard set a
+   rank). Wall, TTFT p50/p99, migrated pages and the hand-off's ms,
+   payload bytes and pipe bytes printed.
+48. at ``TP_DEPTH`` layers: one completion and one streamed completion
+   through the HTTP front end over a tp=2 ``DisaggEngine`` on phase 47's
+   group, the engine's tokens; a 1P+1D at tp=4 (four ranks on cuda:0)
+   with tp=1's tokens; the launcher's ``main`` with
+   ``--disagg --tp 2 --device cuda:0,cuda:0`` against its ``--tp 1`` run
+   (full depth, 45 + 110 launches a forward); every engine and group
+   closed and no worker process left. Phases 47-48 print their walls.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -499,7 +523,8 @@ SERVE_PREFIX = dict(SERVE2, prefill_bucket=16, prefix_page=16,
                     prefix_bytes=64 << 20)
 SHARED_PREFIX, SUFFIX_RANGE = 384, (16, 128)
 PREFIX_CAPACITY = 186           # 64 MiB over 22 x 16 x 4 x 64 x 2 B x (k, v)
-SERVE_SPEC = dict(max_new_tokens=32, max_slots=4, decode_chunk=16,
+# 16 new tokens (32 until slice 14, cut for the run's time)
+SERVE_SPEC = dict(max_new_tokens=16, max_slots=4, decode_chunk=16,
                   cache_len=64, prefill_batch=4, prefill_chunk=16,
                   prefill_bucket=16, draft_k=4)
 M_VERIFY = SERVE_SPEC["max_slots"] * (SERVE_SPEC["draft_k"] + 1)   # 20
@@ -668,6 +693,15 @@ DRYRUN_TIMED_STEPS = 5
 # phase 46: compressed_psum over 2 ranks sharing cuda:0 (gloo), grads of
 # these shapes from a seed
 COMPRESS_SHAPES = {"w": (2048, 5632), "b": (5632,), "emb": (32000, 64)}
+# slice 14 (phases 47-48): DisaggEngine over tp=2 engines on phase 39's
+# traffic (full depth), at tp=4 and through the launcher and the front end
+# at TP_DEPTH layers; the workers turn the prefix cache on (16-position
+# pages)
+DTP = 2
+DTP_SERVE = dict(TP_SERVE, prefix_page=16)
+DTP_TEMP = dict(temperature=0.8, seed=7)
+DTP_PER_FORWARD = {"q2_k": 45, "q3_k": 110}
+DTP_MEM_SLACK = 0.05
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -1162,7 +1196,7 @@ def phase_attn_timing(torch, PA, n_layers, dev):
 
 
 def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
-                    get_policy, policy, dev, expect, PB):
+                    get_policy, policy, dev, expect, PB, shapes=True):
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -1175,7 +1209,8 @@ def pack_full_width(torch, cfg, T, quantize_params, variant_counts,
           f"{policy} packed in "
           f"{time.perf_counter() - t0:.1f}s: {counts} matmuls", flush=True)
     check(counts == expect, f"{policy} layout: {counts}, expected {expect}")
-    check_shapes(torch, qp, cfg, PB, dev)
+    if shapes:
+        check_shapes(torch, qp, cfg, PB, dev)
     return qp
 
 
@@ -4625,17 +4660,16 @@ def compress_rank(seed, error_steps, shapes):
     return out
 
 
-def phase_compress(torch, np):
-    """Phase 46 (module note): two steps, the second fed the first's error
-    state. Each rank's error state is its corrected gradient's rounding
-    residual, bit for bit; the mean is the plain mean of the corrected
-    gradients within one bf16 rounding of each cast and of the sum (a
-    relative 2^-8 each: 2^-7 of the mean magnitude)."""
-    from repro_torch.distributed.group import TPGroup
+def phase_compress(torch, np, group):
+    """Phase 46 (module note) on ``group``, 2 ranks on cuda:0: two steps,
+    the second fed the first's error state. Each rank's error state is its
+    corrected gradient's rounding residual, bit for bit; the mean is the
+    plain mean of the corrected gradients within one bf16 rounding of each
+    cast and of the sum (a relative 2^-8 each: 2^-7 of the mean
+    magnitude)."""
     t0 = time.perf_counter()
-    with TPGroup(2, ["cuda:0"] * 2, timeout_s=TP_TIMEOUT_S) as group:
-        print(f"[compress] {group.describe()}", flush=True)
-        got = group.map(compress_rank, [(46, 2, COMPRESS_SHAPES)] * 2)
+    print(f"[compress] {group.describe()}", flush=True)
+    got = group.map(compress_rank, [(46, 2, COMPRESS_SHAPES)] * 2)
     grads = []
     for rank in range(2):
         rng = np.random.default_rng(46 + rank)
@@ -4666,6 +4700,287 @@ def phase_compress(torch, np):
           f"bf16 roundings of the plain mean (max abs {worst:.3e}); "
           f"{wall:.1f}s", flush=True)
     return {"max_abs_vs_plain_mean": worst, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# slice 14: disaggregated serving over tensor-parallel engines
+# ---------------------------------------------------------------------------
+
+def rank_memory():
+    """This rank's ``torch.cuda.memory_allocated`` (its own allocations:
+    a worker's CUDA IPC mappings of rank 0's weights are not in it)."""
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _same_pages(torch, a, b) -> bool:
+    return (a.tokens == b.tokens and set(a.payload) == set(b.payload)
+            and all(torch.equal(a.payload[k].view(torch.uint8),
+                                b.payload[k].view(torch.uint8))
+                    for k in a.payload))
+
+
+def _collect(torch):
+    """Free what dropped engines held (their callbacks close reference
+    cycles) before a memory reading."""
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def _dtp_run(torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, prompts,
+             group, per_forward, tag, p=1, d=1, extra=None, mem=False):
+    """``prompts`` through a pP+dD ``DisaggEngine`` at ``group.size`` ranks
+    on ``group``, the launch counts of every rank zeroed just before and
+    read just after: every forward of either tier launches
+    ``per_forward`` matmul kernels, every prefill-chunk forward
+    ``cfg.n_layers`` attention kernels, on rank 0 and on every other
+    rank. Returns (tokens, stats, matmul launches, attention launches,
+    wall s, every rank's memory with the engine alive or None, rank 0's
+    tier exports of ``prompts``)."""
+    tp = group.size
+    dis = DisaggEngine(cfg, qp, ServeConfig(tp=tp, **DTP_SERVE,
+                                            **(extra or {})),
+                       prefill_workers=p, decode_workers=d, group=group)
+    try:
+        _reset_all(torch, PB, PA, group)
+        t0 = time.perf_counter()
+        res = dis.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = dict(dis.stats)
+        ranks = group.map(rank_launches, [()] * tp)
+        lau, at = dict(PB.launches), PA.launches["prefill_attn"]
+        memory = group.map(rank_memory, [()] * tp) if mem else None
+        pages = [dis.prefill_engines[0].export_kv_pages(q) for q in prompts]
+    finally:
+        dis.close()
+    del dis
+    _collect(torch)
+    _check_launches(tag, PB, lau, {"forwards": s["forwards"],
+                                   "draft_forwards": 0}, per_forward)
+    check(at == cfg.n_layers * s["prefill_forwards"],
+          f"{tag}: {at} attention launches over {s['prefill_forwards']} "
+          "prefill-chunk forwards")
+    check(all(r == (lau, at) for r in ranks),
+          f"{tag}: ranks launched {ranks}, rank 0 {(lau, at)}")
+    rt = s["router"]
+    handoffs = sum(rt["prefill_requests"])
+    print(f"[disagg tp] {tag}: {len(res)} requests in {wall:.3f}s, ttft p50 "
+          f"{s['ttft_p50_s'] * 1e3:.1f} ms, p99 {s['ttft_p99_s'] * 1e3:.1f} "
+          f"ms; {s['forwards']} forwards ({s['prefill_forwards']} prefill "
+          f"chunks); migrated {s['migrated_pages']} pages for "
+          f"{s['migrated_requests']} requests; hand-off "
+          f"{s['handoff_s'] * 1e3:.2f} ms for {handoffs} requests, "
+          f"{s['handoff_bytes']} payload bytes, {s['handoff_pipe_bytes']} "
+          f"bytes over the pipe; decode requests {rt['decode_requests']}",
+          flush=True)
+    check(s["migrated_pages"] > 0 and s["prefix_hits"] > 0,
+          f"{tag}: no page migrated or reused")
+    check(all(len(t) == DTP_SERVE["max_new_tokens"] for t in res),
+          f"{tag}: a request did not get its tokens")
+    out = {"wall_s": wall, "ttft_p50_ms": s["ttft_p50_s"] * 1e3,
+           "ttft_p99_ms": s["ttft_p99_s"] * 1e3,
+           "forwards": s["forwards"],
+           "prefill_forwards": s["prefill_forwards"],
+           "migrated_pages": s["migrated_pages"], "handoffs": handoffs,
+           "handoff_ms": s["handoff_s"] * 1e3,
+           "handoff_payload_bytes": s["handoff_bytes"],
+           "handoff_pipe_bytes": s["handoff_pipe_bytes"],
+           "decode_tok_per_s": s["tok_per_s"]}
+    return res, out, lau, at, memory, pages
+
+
+def _tp1_refs(torch, Engine, DisaggEngine, ServeConfig, cfg, qp, prompts,
+              dev, extra=None):
+    """The monolithic tp=1 engine's tokens and the tp=1 1P+1D
+    ``DisaggEngine``'s (which must equal them), that tier's exported
+    pages and its hand-off (ms, payload bytes, requests)."""
+    kw = dict(DTP_SERVE, **(extra or {}))
+    with Engine(cfg, qp, ServeConfig(**kw), device=dev) as e1:
+        mono = e1.generate(prompts)
+    with DisaggEngine(cfg, qp, ServeConfig(**kw), device=dev) as d1:
+        one = d1.generate(prompts)
+        s = d1.stats
+        pages = [d1.prefill_engines[0].export_kv_pages(q) for q in prompts]
+    _collect(torch)
+    check(one == mono, f"tp=1 DisaggEngine ({extra}) != the monolithic "
+          "engine")
+    handoff = {"handoff_ms": s["handoff_s"] * 1e3,
+               "handoff_payload_bytes": s["handoff_bytes"],
+               "handoffs": sum(s["router"]["prefill_requests"])}
+    print(f"[disagg tp] tp=1 1P+1D ({extra or 'greedy'}): tokens == "
+          f"monolithic; hand-off {handoff['handoff_ms']:.2f} ms for "
+          f"{handoff['handoffs']} requests, "
+          f"{handoff['handoff_payload_bytes']} payload bytes", flush=True)
+    return mono, pages, handoff
+
+
+def phase_disagg_tp(torch, np, get_arch, T, quantize_params, variant_counts,
+                    get_policy, Engine, ServeConfig, DisaggEngine, PB, PA,
+                    group, dev):
+    """Phase 47 (path 35; module note) on ``group``, two ranks on cuda:0
+    (phase 46's). Returns (matmul launches by path, attention launches by
+    path, summary)."""
+    t_phase = time.perf_counter()
+    cfg = get_arch(TP_ARCH).replace(attn_impl="fused")
+    qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                         get_policy, TP_POLICY, dev, DTP_PER_FORWARD, PB,
+                         shapes=False)
+    prompts = _tp_prompts(np, cfg)
+    mono, pages1, handoff1 = _tp1_refs(torch, Engine, DisaggEngine,
+                                       ServeConfig, cfg, qp, prompts, dev)
+    mono_t, _, _ = _tp1_refs(torch, Engine, DisaggEngine, ServeConfig, cfg,
+                             qp, prompts, dev, DTP_TEMP)
+    check(mono_t != mono, "temperature 0.8 gave the greedy tokens")
+    launches, attn, out = {}, {}, {"tp1_1p1d_handoff": handoff1}
+    _collect(torch)
+    mem0 = group.map(rank_memory, [()] * DTP)
+    mems = {}
+    for key, p, d, extra, want in (
+            ("1p1d", 1, 1, None, mono), ("2p2d", 2, 2, None, mono),
+            ("1p1d_t0.8", 1, 1, DTP_TEMP, mono_t)):
+        tag = f"tinyllama_disagg_tp{DTP}_{key}"
+        res, out[key], lau, at, mems[key], pages = _dtp_run(
+            torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, prompts,
+            group, DTP_PER_FORWARD, tag, p, d, extra, mem=extra is None)
+        print(f"[disagg tp] {tag}: tokens == monolithic tp=1 and tp=1 "
+              f"DisaggEngine: {res == want}", flush=True)
+        check(res == want, f"{tag}: tokens differ from tp=1's")
+        if key == "1p1d":
+            same = all(_same_pages(torch, a, b)
+                       for a, b in zip(pages, pages1))
+            print(f"[disagg tp] {tag}: prefill-tier pages == tp=1's bit "
+                  f"for bit: {same} ({sum(x.n_pages for x in pages)} "
+                  "pages)", flush=True)
+            check(same, f"{tag}: exported pages differ from tp=1's")
+        launches[tag], attn[tag] = lau, at
+    # one weight shard set a rank: the workers' rings and page pools (a
+    # tp=2 engine's, allocated at first use, the same in either tier) are
+    # all that 2P+2D adds over 1P+1D
+    for r in range(DTP):
+        one = (mems["1p1d"][r] - mem0[r]) / 2
+        bound = (mem0[r] + 4 * one) * (1 + DTP_MEM_SLACK)
+        print(f"[disagg tp] rank {r} memory_allocated: {mem0[r] / 1e6:.1f} "
+              f"MB before, {mems['1p1d'][r] / 1e6:.1f} MB with 1P+1D serving "
+              f"(a worker's ring and pool {one / 1e6:.1f} MB), "
+              f"{mems['2p2d'][r] / 1e6:.1f} MB with 2P+2D (bound "
+              f"{bound / 1e6:.1f} MB)", flush=True)
+        check(mems["2p2d"][r] <= bound, f"rank {r}: {mems['2p2d'][r]} bytes "
+              f"with 2P+2D, over {bound:.0f}: a weight copy a worker?")
+    out["memory_mb"] = {"before": [m / 1e6 for m in mem0],
+                        **{k: [m / 1e6 for m in mems[k]]
+                           for k in ("1p1d", "2p2d")}}
+    del qp
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[disagg tp] phase 47 took {out['wall_s']:.1f}s", flush=True)
+    return launches, attn, out
+
+
+def _disagg_tp_http(torch, cfg, qp, prompt, ServeConfig, DisaggEngine, FE,
+                    group):
+    """Phase 48's front-end part: one completion and one SSE completion
+    through the HTTP front end over a tp=2 ``DisaggEngine`` on ``group``,
+    each the engine's tokens."""
+    with DisaggEngine(cfg, qp, ServeConfig(tp=DTP, **DTP_SERVE),
+                      group=group) as dis:
+        want = dis.generate([prompt])[0]
+        front = FE.Frontend(dis, FE.FrontendConfig(
+            model_name=TP_ARCH, request_timeout_s=120.0)).start()
+        try:
+            got = [None, None]
+            for i, stream in enumerate((False, True)):
+                _client(front.port, prompt, len(want), stream, got, i)
+        finally:
+            front.close()
+    _collect(torch)
+    print(f"[disagg tp] HTTP over a tp={DTP} DisaggEngine: completion "
+          f"{got[0][1]!r} in {got[0][3] * 1e3:.1f} ms, stream {got[1][1]!r} "
+          f"(first token {got[1][2] * 1e3:.1f} ms, all "
+          f"{got[1][3] * 1e3:.1f} ms); tokens == the engine's: "
+          f"{[g[0] == want for g in got]}", flush=True)
+    check(all(g[0] == want and g[1] == "length" for g in got),
+          "HTTP over the tp=2 DisaggEngine: tokens differ")
+    return {"completion_ms": got[0][3] * 1e3,
+            "stream_first_ms": got[1][2] * 1e3,
+            "stream_all_ms": got[1][3] * 1e3}
+
+
+def phase_disagg_tp_entry_points(torch, np, get_arch, T, quantize_params,
+                                 variant_counts, get_policy, Engine,
+                                 ServeConfig, DisaggEngine, FE, PB, PA,
+                                 group, dev):
+    """Phase 48 (module note) at ``TP_DEPTH`` layers: the HTTP front end
+    on ``group`` (two ranks on cuda:0, phases 46-47's), which it then
+    closes; the tp=4 1P+1D; the launcher (full depth); then no worker of
+    any of these groups may be left. Returns (matmul launches by path,
+    attention launches by path, summary)."""
+    import multiprocessing
+    from repro_torch.distributed.group import TPGroup
+    from repro_torch.launch import serve as launcher
+    t_phase = time.perf_counter()
+    cfg = get_arch(TP_ARCH).replace(attn_impl="fused", n_layers=TP_DEPTH)
+    qp = pack_full_width(torch, cfg, T, quantize_params, variant_counts,
+                         get_policy, TP_POLICY, dev, TP_PER_FORWARD, PB,
+                         shapes=False)
+    prompts = _tp_prompts(np, cfg)
+    mono, _, _ = _tp1_refs(torch, Engine, DisaggEngine, ServeConfig, cfg, qp,
+                           prompts, dev)
+    launches, attn = {}, {}
+    out = {"http": _disagg_tp_http(torch, cfg, qp, prompts[0], ServeConfig,
+                                   DisaggEngine, FE, group)}
+    procs = list(group._procs)
+    group.close()
+    with TPGroup(4, ["cuda:0"] * 4, timeout_s=TP_TIMEOUT_S) as group:
+        procs += group._procs
+        tag = "tinyllama_disagg_tp4_1p1d"
+        res, out["tp4_1p1d"], lau, at, _, _ = _dtp_run(
+            torch, DisaggEngine, ServeConfig, PB, PA, cfg, qp, prompts,
+            group, TP_PER_FORWARD, tag)
+        check(res == mono, f"{tag}: tokens differ from tp=1's")
+        launches[tag], attn[tag] = lau, at
+    # the launcher (full depth: it has no depth cut): --disagg --tp 2 with
+    # both ranks on the one card against its --tp 1 run (the same seed:
+    # weights, prompts)
+    argv = ["--arch", TP_ARCH, "--policy", TP_POLICY, "--requests", "4",
+            "--slots", "4", "--tokens", "8",
+            "--cache-len", "256", "--prefill-chunk", "64",
+            "--shared-prefix", str(TP_SHARED), "--prompt-len", "24",
+            "--prefix-page", "16"]
+    t0 = time.perf_counter()
+    _, one = launcher.main(argv + ["--device", "cuda"])
+    PB.reset_launches()
+    PA.reset_launches()
+    eng, two = launcher.main(argv + ["--disagg", "--tp", str(DTP),
+                                     "--device", "cuda:0,cuda:0"])
+    procs += eng.group._procs
+    lau = dict(PB.launches)
+    tag = "tinyllama_launcher_disagg_tp2"
+    _check_launches(tag, PB, lau, {"forwards": eng.stats["forwards"],
+                                   "draft_forwards": 0}, DTP_PER_FORWARD)
+    launches[tag] = lau
+    print(f"[disagg tp] launcher --disagg --tp {DTP} --device cuda:0,cuda:0: "
+          f"tokens == --tp 1: {two == one}; closed {eng.closed}, group "
+          f"closed {eng.group.closed}; {time.perf_counter() - t0:.1f}s for "
+          "both runs", flush=True)
+    check(two == one and len(two) == 4, "launcher --disagg --tp 2 tokens "
+          "differ from --tp 1")
+    check(eng.closed and eng.group.closed, "the launcher left its engine "
+          "open")
+    del eng
+    for p in procs:
+        p.join(TP_TIMEOUT_S)
+    alive = [p.name for p in procs if p.is_alive()]
+    left = multiprocessing.active_children()
+    print(f"[disagg tp] {len(procs)} worker processes started, alive after "
+          f"close: {alive}; children left: {left}", flush=True)
+    check(not alive and not left, f"worker processes left: {alive} {left}")
+    del qp
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[disagg tp] phase 48 took {out['wall_s']:.1f}s", flush=True)
+    return launches, attn, out
 
 
 def main() -> None:
@@ -4845,7 +5160,27 @@ def main() -> None:
     slice13 = {"cells": phase_dryrun_cells(torch, root)}
     launches13, slice13["card"] = phase_dryrun_vs_card(
         torch, get_arch, T, S, quantize_params, get_policy, PB, dev)
-    slice13["compress"] = phase_compress(torch, np)
+    # phase 46 and slice 14's tp=2 phases on one group of two ranks on
+    # cuda:0 (a group's start costs several seconds a worker); phase 48
+    # closes it before its tp=4 group and the launcher's
+    from repro_torch.distributed.group import TPGroup
+    group = TPGroup(DTP, ["cuda:0"] * DTP, timeout_s=TP_TIMEOUT_S)
+    try:
+        slice13["compress"] = phase_compress(torch, np, group)
+        # slice 14: disaggregated serving over tensor-parallel engines
+        print(f"[disagg tp] {group.describe()}", flush=True)
+        launches14, attn14, slice14 = phase_disagg_tp(
+            torch, np, get_arch, T, quantize_params, variant_counts,
+            get_policy, Engine, ServeConfig, DisaggEngine, PB, PA, group,
+            dev)
+        lau, at, slice14["entry_points"] = phase_disagg_tp_entry_points(
+            torch, np, get_arch, T, quantize_params, variant_counts,
+            get_policy, Engine, ServeConfig, DisaggEngine, FE, PB, PA, group,
+            dev)
+    finally:
+        group.close()
+    launches14.update(lau)
+    attn14.update(at)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4865,7 +5200,8 @@ def main() -> None:
                    **{p: launches8[p][v] for p in launches8},
                    **{p: launches11[p][v] for p in launches11},
                    **{p: launches12[p][v] for p in launches12},
-                   "dryrun_check_decode": launches13.get(v, 0)}
+                   "dryrun_check_decode": launches13.get(v, 0),
+                   **{p: launches14[p][v] for p in launches14}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -4913,10 +5249,10 @@ def main() -> None:
         "replaces": "src/repro/kernels/prefill_attn.py:80",
         "launches": attn1 + attn2 + sum(attn5.values())
         + sum(attn6.values()) + sum(attn7.values()) + sum(attn11.values())
-        + sum(attn12.values()),
+        + sum(attn12.values()) + sum(attn14.values()),
         "launches_by_path": {"paper_llama_mix": attn1,
                              "extended_mix_fused": attn2, **attn5, **attn6,
-                             **attn7, **attn11, **attn12},
+                             **attn7, **attn11, **attn12, **attn14},
         "max_abs_err": max_abs["prefill_attn"],
         "ms": attn_timing["ms"], "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],
@@ -4961,6 +5297,7 @@ def main() -> None:
     print(f"[slice11] summary: {json.dumps(slice11)}", flush=True)
     print(f"[slice12] summary: {json.dumps(slice12)}", flush=True)
     print(f"[slice13] summary: {json.dumps(slice13)}", flush=True)
+    print(f"[slice14] summary: {json.dumps(slice14)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

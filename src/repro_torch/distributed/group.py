@@ -9,15 +9,21 @@ shard is a process of its own, joined to the others by one
   ``TPGroup(size, devices)`` starts ranks 1..size-1 with
   ``torch.multiprocessing`` (spawn) and joins them through a
   ``FileStore`` in a fresh temporary directory (no TCP port to pick);
-* rank 0 drives the workers over a pipe each: it opens an engine on them
-  (``open_engine``: each worker gets the config, the plan and its own
-  local shard of the weights, which ``torch.multiprocessing`` passes by
-  CUDA IPC or shared host memory, not by copying) and then ships every
-  device program of that engine as its name and host arguments
-  (``call``); every rank runs the same body on its own shard, and the
-  collectives inside the model code keep them in step. The outputs a
-  host reads are replicated by those collectives, so every rank makes
-  the same control decisions and rank 0 reads its own copy;
+* rank 0 drives the workers over a pipe each: it ships a weight shard
+  set (``put_shards``: each worker gets its own local shard of the
+  weights, which ``torch.multiprocessing`` passes by CUDA IPC or shared
+  host memory, not by copying, and keeps it under the set's id), opens
+  engines on a set (``open_engine``: the config, the plan and the set's
+  id; any number of engines share one set, so a rank holds one copy of
+  the weights however many engines it serves) and then ships every
+  device program of an engine as its name and host arguments (``call``);
+  every rank runs the same body on its own shard, and the collectives
+  inside the model code keep them in step. The outputs a host reads are
+  replicated by those collectives, so every rank makes the same control
+  decisions and rank 0 reads its own copy. Engines on one group run
+  their programs in the order rank 0 issues them: one scheduler thread
+  drives them all (``serving/disagg.py`` opens both of its tiers on one
+  group);
 * ``map`` runs any module-level function on every rank under the plan
   and returns every rank's result (the tests and the smoke run hold
   single layers and kernels at their TP shapes through it).
@@ -40,16 +46,19 @@ matmul's ``ppermute``, takes no other).
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import shutil
 import sys
 import tempfile
 import traceback
+from multiprocessing.reduction import ForkingPickler
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.quantize import QTensor
 from repro_torch.distributed import sharding as SH
 
 DEFAULT_TIMEOUT_S = 300.0
@@ -101,6 +110,34 @@ def choose_backend(devices: Sequence[torch.device]) -> str:
     return "gloo"
 
 
+def tree_to(tree, device: torch.device):
+    """A parameter tree (dicts of tensors and QTensors) on ``device``;
+    leaves already there are kept as they are (views stay views)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.variant, tree.shape,
+                       {k: tree_to(v, device) for k, v in tree.data.items()})
+    return tree if tree.device == device else tree.to(device)
+
+
+def tree_storages(tree) -> List[int]:
+    """The sorted distinct storage addresses of a parameter tree's
+    tensors (two trees that share their weights give the same list)."""
+    out = set()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, QTensor):
+            walk(node.data)
+        elif isinstance(node, torch.Tensor):
+            out.add(node.untyped_storage().data_ptr())
+    walk(tree)
+    return sorted(out)
+
+
 def _to_wire(x: torch.Tensor) -> torch.Tensor:
     """The bytes of ``x`` as a uint8 tensor (its last dim times the item
     size): the data-movement collectives send bytes, which every backend
@@ -120,7 +157,9 @@ class TPGroup:
     model code calls on every rank: ``all_gather`` (tiled, along a dim),
     ``all_reduce`` (sum) and ``ring_shift`` (send to the next rank,
     receive from the previous one). ``counts`` and ``wire_bytes`` record
-    what this rank sent through them."""
+    what this rank sent through them; ``pipe_bytes`` the pickled bytes
+    rank 0 wrote to the workers' pipes (tensors cross by CUDA IPC or
+    shared memory and add only their handles)."""
 
     def __init__(self, size: int, devices, *,
                  timeout_s: float = DEFAULT_TIMEOUT_S):
@@ -139,7 +178,8 @@ class TPGroup:
         import torch.multiprocessing as mp
         ctx = mp.get_context("spawn")
         self._conns, self._procs = [], []
-        self._next_eid = 0
+        self._next_eid = self._next_sid = 0
+        self._shard_sets: Dict[int, Any] = {}
         self.closed = False
         try:
             for r in range(1, size):
@@ -165,6 +205,7 @@ class TPGroup:
         g.devices = [torch.device(d) for d in devices]
         g.backend, g.timeout_s = backend, float(timeout_s)
         g._dir, g._conns, g._procs, g.closed = None, [], [], False
+        g._shard_sets = {}
         g._init(store)
         g._reset_counts()
         return g
@@ -181,6 +222,7 @@ class TPGroup:
     def _reset_counts(self) -> None:
         self.counts = {"all_gather": 0, "all_reduce": 0, "ring_shift": 0}
         self.wire_bytes = 0
+        self.pipe_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -249,21 +291,59 @@ class TPGroup:
                                    "group is closed")
 
     def _send_all(self, msgs) -> None:
+        """One message a worker, each pickled on its own (a tensor's
+        shared-memory handle is taken once, by one receiver)."""
         self._check_alive()
         try:
             for conn, msg in zip(self._conns, msgs):
-                conn.send(msg)
+                data = ForkingPickler.dumps(msg)
+                conn.send_bytes(data)
+                self.pipe_bytes += len(data)
         except (BrokenPipeError, EOFError, OSError) as e:
             self.abort()
             raise RuntimeError(f"lost a TP worker: {e}") from e
 
-    def open_engine(self, cfg, scfg, plan, shards: Sequence[Any]) -> int:
-        """Build a mirror of an engine on every worker: ``shards[r - 1]``
-        is rank r's local parameter tree. Returns the engine's id."""
+    def put_shards(self, params, plan: SH.ServeTPPlan) -> int:
+        """Make one weight shard set: every rank's local views of
+        ``params`` under ``plan`` (``sharding.localize_serve_params``),
+        moved to the rank's device (no copy where ``params`` already lie
+        there), each worker sent its own. Returns the set's id, which
+        ``open_engine`` takes; rank 0 keeps every rank's shard alive (the
+        workers map them by CUDA IPC or shared memory)."""
+        specs = SH.serve_param_specs(params, plan)
+        shards = [tree_to(SH.localize_serve_params(params, specs, self.size,
+                                                   r), self.devices[r])
+                  for r in range(self.size)]
+        sid = self._next_sid
+        self._next_sid += 1
+        self._send_all([("shards", sid, shards[r])
+                        for r in range(1, self.size)])
+        self._shard_sets[sid] = (plan, shards)
+        return sid
+
+    def local_shards(self, sid: int):
+        """Rank 0's tree of shard set ``sid``."""
+        return self._shard_sets[sid][1][0]
+
+    def drop_shards(self, sid: int) -> None:
+        """Forget shard set ``sid`` on every rank (its engines first)."""
+        self._shard_sets.pop(sid, None)
+        if not self.closed:
+            self._send_all([("drop_shards", sid)] * (self.size - 1))
+
+    def open_engine(self, cfg, scfg, plan, sid: int) -> int:
+        """Build a mirror of an engine on every worker, on the weights of
+        shard set ``sid`` (made under the same plan). Returns the
+        engine's id."""
+        if sid not in self._shard_sets:
+            raise ValueError(f"no shard set {sid} on this group")
+        if self._shard_sets[sid][0] != plan:
+            raise ValueError(f"shard set {sid} was made under "
+                             f"{self._shard_sets[sid][0]}, not {plan}")
         eid = self._next_eid
         self._next_eid += 1
-        self._send_all([("engine", eid, cfg, scfg, plan, shards[r])
-                        for r in range(self.size - 1)])
+        self._send_all([("engine", eid, cfg, scfg, plan, sid)]
+                       * (self.size - 1))
         return eid
 
     def call(self, eid: int, name: str, args: tuple, host: dict) -> None:
@@ -334,6 +414,7 @@ class TPGroup:
 
     def _finish(self) -> None:
         self.closed = True
+        self._shard_sets.clear()
         for p in self._procs:
             if p.is_alive():
                 p.kill()
@@ -385,13 +466,25 @@ def imported_top_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in sys.modules})
 
 
+# a worker's engine mirrors and weight shard sets, by id
+_MIRRORS: Dict[int, Any] = {}
+_SHARDS: Dict[int, Any] = {}
+
+
+def engine_weight_storages() -> Dict[int, List[int]]:
+    """For each engine mirror in this worker, by engine id, the storages
+    its weights live in (``tree_storages``): engines opened on one shard
+    set list the same ones. Run it on every rank with ``TPGroup.map``;
+    rank 0 holds no mirror and gives {}."""
+    return {eid: tree_storages(m.params) for eid, m in _MIRRORS.items()}
+
+
 def _worker_main(rank, size, store, backend, devices, timeout_s, conn):
     """A worker rank: join the group, then run what rank 0 sends until it
     closes the group or its pipe closes."""
     torch.set_num_threads(1)
     group = TPGroup._join(rank, size, store, backend, devices, timeout_s)
     device = group.device
-    mirrors: Dict[int, Any] = {}
     code = 0
     try:
         while True:
@@ -402,16 +495,20 @@ def _worker_main(rank, size, store, backend, devices, timeout_s, conn):
             kind = msg[0]
             if kind == "close":
                 break
-            if kind == "engine":
+            if kind == "shards":
+                _SHARDS[msg[1]] = msg[2]
+            elif kind == "engine":
                 from repro_torch.serving.engine import Engine
-                _, eid, cfg, scfg, plan, params = msg
-                mirrors[eid] = Engine._mirror(cfg, params, scfg, device,
-                                              plan, rank, group)
+                _, eid, cfg, scfg, plan, sid = msg
+                _MIRRORS[eid] = Engine._mirror(cfg, _SHARDS[sid], scfg,
+                                               device, plan, rank, group)
             elif kind == "call":
                 _, eid, name, args, host = msg
-                mirrors[eid]._run_mirrored(name, args, host)
+                _MIRRORS[eid]._run_mirrored(name, args, host)
             elif kind == "drop":
-                mirrors.pop(msg[1], None)
+                _MIRRORS.pop(msg[1], None)
+            elif kind == "drop_shards":
+                _SHARDS.pop(msg[1], None)
             elif kind == "map":
                 _, fn, args, plan = msg
                 try:
@@ -429,6 +526,9 @@ def _worker_main(rank, size, store, backend, devices, timeout_s, conn):
     if code:
         os._exit(code)          # the group may be mid-collective: no
                                 # orderly teardown
-    mirrors.clear()
+    _MIRRORS.clear()
+    _SHARDS.clear()
+    gc.collect()                # release the shared CUDA tensors rank 0
+                                # counts before it may exit
     dist.destroy_process_group()
     conn.close()

@@ -35,10 +35,17 @@ queue of requests through the continuous-batching engine.
       --prompt-len 384 --prefill-chunk 128 --cache-len 1024 --tokens 32 \
       --prefix-cache --shared-prefix 384 --prefix-bytes 1073741824
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --disagg --tp 2 --force-host-devices 2 --shared-prefix 20 \
+      --prompt-len 18 --prefix-page 8
+
 ``--tp N`` serves on N ranks, one process each (rank r on cuda:r, so
-N cards; ``--force-host-devices N`` runs them on the CPU instead), with
-``--tp-matmul`` padded|sliced|sliced_row and ``--no-tp-ep``; ssm and
-hybrid archs and ``--disagg`` refuse it. The engine prints its backend:
+N cards; ``--force-host-devices N`` runs them on the CPU instead, and
+``--device`` may list one device a rank, ``cuda:0,cuda:0`` putting two
+ranks on one card), with ``--tp-matmul`` padded|sliced|sliced_row and
+``--no-tp-ep``; ssm and hybrid archs refuse it. With ``--disagg`` every
+prefill and decode worker is an N-rank engine, all on one group of N
+ranks and one weight shard set a rank. The engine prints its backend:
 NCCL with a card a rank, gloo on the host.
 
 ``--policy auto`` loads the searched policy file ``--policy-json`` if it
@@ -263,7 +270,9 @@ def main(argv=None):
                          "REPRO_FORCE_HOST_DEVICES); --device cuda with it "
                          "is an error")
     ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu")
+                    help="cuda (the default) or cpu; under --tp N also a "
+                         "comma-separated list of N devices, one a rank "
+                         "(cuda:0,cuda:0 puts two ranks on one card)")
     args = ap.parse_args(argv)
 
     host = args.force_host_devices
@@ -278,7 +287,14 @@ def main(argv=None):
             raise SystemExit(f"--tp {args.tp} needs {args.tp} ranks but "
                              f"--force-host-devices gives {host}")
         args.device = "cpu"
-    dev = resolve_device(args.device or "cuda")
+    ranks = None                # the engines' device argument, a list of
+                                # one device a rank where one was given
+    if args.device is not None and "," in args.device:
+        ranks = [d.strip() for d in args.device.split(",")]
+        if len(ranks) != args.tp:
+            raise SystemExit(f"--device lists {len(ranks)} devices for "
+                             f"--tp {args.tp}: give one a rank")
+    dev = resolve_device(ranks[0] if ranks else args.device or "cuda")
     cfg = get_arch(args.arch, reduced=args.reduced)
     if not cfg.embed_input:
         raise SystemExit(f"{args.arch} has a stub modality frontend; "
@@ -332,9 +348,9 @@ def main(argv=None):
         engine = DisaggEngine(cfg, qp, scfg,
                               prefill_workers=args.prefill_workers,
                               decode_workers=args.decode_workers,
-                              device=dev)
+                              device=ranks or dev)
     else:
-        engine = Engine(cfg, qp, scfg, device=dev)
+        engine = Engine(cfg, qp, scfg, device=ranks or dev)
     if args.http:
         from repro_torch.serving.frontend import FrontendConfig, serve_forever
         try:
@@ -373,7 +389,9 @@ def main(argv=None):
         disagg = (f", router: {rt['migrated_pages_total']} pages migrated, "
                   f"prefill hit rates {rt['prefill_hit_rate']}, "
                   f"{rt['direct_decode']} direct-to-decode, peak depths "
-                  f"P{rt['prefill_peak_depth']}/D{rt['decode_peak_depth']}")
+                  f"P{rt['prefill_peak_depth']}/D{rt['decode_peak_depth']}"
+                  f", hand-off {s['handoff_s'] * 1e3:.1f} ms for "
+                  f"{s['handoff_bytes']} bytes")
     print(f"prefill {s['prefill_s']:.3f}s ({s['prefill_tok_per_s']:.1f} "
           f"tok/s, {s['prefill_groups']} groups, mean ttft "
           f"{s['ttft_s'] * 1e3:.1f}ms), decode {s['decode_s']:.3f}s, "
@@ -385,7 +403,8 @@ def main(argv=None):
 
 
 def _close(engine) -> None:
-    """Stop a tensor-parallel engine's worker ranks."""
+    """Stop a tensor-parallel engine's worker ranks: an ``Engine``'s, or
+    every worker of a ``DisaggEngine`` and their group."""
     close = getattr(engine, "close", None)
     if close is not None:
         close()

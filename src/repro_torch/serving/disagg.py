@@ -43,6 +43,29 @@ also at every scheduler iteration of every worker's run, so a front end's
 arrivals, cancels and timeouts land between chunks in the middle of a
 wave too (arrivals join the next wave); ``cancel`` reaches a request at
 any stage.
+
+**Over tensor-parallel engines** (``ServeConfig.tp`` = N > 1). Both
+tiers have the same degree, as in the reference, which builds every
+worker from one ServeConfig. All N + M workers open on **one**
+``TPGroup`` of N ranks (made here, or passed in as ``group=``), as the
+reference's engines all shard over the same ``devs[:tp]``: rank 0 is
+this process and its one scheduler thread issues every engine's device
+programs in turn, each rank runs them on its own shards. The weights are
+sharded once (``TPGroup.put_shards``) and every worker opens on that one
+shard set, so a rank holds one copy of them whatever N and M are. The
+hand-off keeps its protocol: the prefill worker's export gathers the kv
+heads of every rank into host memory (one all-gather a payload), and the
+decode worker's import ships the payload to its ranks with the program
+(CPU tensors cross by shared memory, not through the pipe), each of
+which copies its own kv heads into its pool. With the "padded" datapath
+each rank's products keep the single-device shapes, so greedy and
+temperature tokens equal the tp = 1 ``DisaggEngine``'s and the
+monolithic ``Engine``'s (same ServeConfig, same seed). A program that
+fails on any rank aborts the group, and the ``DisaggEngine`` with it: it
+raises and counts as closed, never carrying on at tp = 1 or on fewer
+workers. ``close()`` (or ``with``) drops every worker, then the shard
+set, then the group if this engine made it; a group passed in stays
+open.
 """
 from __future__ import annotations
 
@@ -55,6 +78,8 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.group import TPGroup
 from repro_torch.models.state import KV_FAMILIES
 from repro_torch.serving.engine import (Engine, EngineSaturated, Request,
                                         ServeConfig)
@@ -64,22 +89,22 @@ from repro_torch.serving.router import KVRouter
 class DisaggEngine:
     """N prefill + M decode engines, one router, page migration through
     host memory. Its surface mirrors ``Engine``: submit/cancel/run/
-    generate and a ``stats`` dict (summed over the workers, plus the
-    router's ``snapshot()`` under ``router``). ``params`` must already lie
-    on ``device``; with no GPU the default device raises, pass
-    ``device="cpu"`` for the CPU path."""
+    generate/close and a ``stats`` dict (summed over the workers, plus
+    the router's ``snapshot()`` under ``router``). ``params`` must
+    already lie on ``device`` (rank 0's, at tp > 1); with no GPU the
+    default device raises, pass ``device="cpu"`` for the CPU path.
+
+    At ``serve_cfg.tp`` = N > 1 every worker is an N-rank engine on one
+    group: ``group``, a ``TPGroup`` of N ranks that outlives this engine,
+    or one made here with its ranks placed by ``device`` as ``Engine``
+    places them (``distributed.group.rank_devices``: "cuda" puts rank r
+    on cuda:r and raises with fewer cards, a list such as
+    ``["cuda:0"] * N`` shares a card, "cpu" takes any N)."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  prefill_workers: int = 1, decode_workers: int = 1,
-                 device="cuda"):
-        if serve_cfg.tp > 1:
-            raise NotImplementedError(
-                f"DisaggEngine over tp={serve_cfg.tp} engines is not ported "
-                "(ROADMAP queue 1 item 11): each tier worker would be a "
-                "group of ranks, and the page hand-off would gather and "
-                "split kv heads between groups; serve disaggregated at "
-                "tp=1, or monolithic with Engine at tp > 1")
-        self.device = resolve_device(device)
+                 device="cuda", *, group: Optional[TPGroup] = None):
+        tp = serve_cfg.tp
         if prefill_workers < 1 or decode_workers < 1:
             raise ValueError(
                 f"need >= 1 prefill and >= 1 decode worker, got "
@@ -89,8 +114,27 @@ class DisaggEngine:
                 f"disaggregated serving needs a KV-ring family (got "
                 f"{cfg.family!r}): recurrent state is not positional and "
                 "cannot be handed off as pages")
+        if tp > 1 and group is not None:
+            if group.size != tp or group.closed:
+                raise ValueError(f"group of {group.size} ranks (closed: "
+                                 f"{group.closed}) for tp={tp}")
+        elif group is not None:
+            raise ValueError(f"group= serves tp > 1 engines, got tp={tp}")
+        # the plan validates tp_matmul before any worker starts
+        plan = SH.make_serve_tp_plan(cfg, tp, matmul=serve_cfg.tp_matmul,
+                                     params=params, ep=serve_cfg.tp_ep)
         self.cfg = cfg
         self.scfg = serve_cfg
+        self.group: Optional[TPGroup] = None
+        self._own_group, self._sid, self._closed = False, None, False
+        self.prefill_engines: List[Engine] = []
+        self.decode_engines: List[Engine] = []
+        if tp > 1:
+            self._own_group = group is None
+            self.group = group or TPGroup(tp, device)
+            self.device = self.group.device
+        else:
+            self.device = resolve_device(device)
         # decode workers are the serving engines: the same config (seed,
         # slots, drafter, sampling: the parity contract), the prefix cache
         # on because imported pages land in it
@@ -100,10 +144,21 @@ class DisaggEngine:
         # router's scoring state and the export source
         pcfg = dataclasses.replace(serve_cfg, prefix_cache=True,
                                    drafter=None)
-        self.decode_engines = [Engine(cfg, params, dcfg, device=self.device)
-                               for _ in range(decode_workers)]
-        self.prefill_engines = [Engine(cfg, params, pcfg, device=self.device)
-                                for _ in range(prefill_workers)]
+        try:
+            kw = {}
+            if tp > 1:
+                # one weight shard set a rank for every worker
+                self._sid = self.group.put_shards(params, plan)
+                kw = dict(group=self.group, shards=self._sid)
+            for _ in range(decode_workers):
+                self.decode_engines.append(
+                    Engine(cfg, params, dcfg, device=self.device, **kw))
+            for _ in range(prefill_workers):
+                self.prefill_engines.append(
+                    Engine(cfg, params, pcfg, device=self.device, **kw))
+        except BaseException:
+            self.close()
+            raise
         self.router = KVRouter(self.prefill_engines, self.decode_engines)
         self._page = self.prefill_engines[0]._page
         self._T = self.decode_engines[0]._T
@@ -116,12 +171,48 @@ class DisaggEngine:
         self._run_t0: Optional[float] = None
         self.stats: Dict[str, Any] = self._fresh_stats()
 
+    # -- lifecycle -----------------------------------------------------------
+    @property
+    def closed(self) -> bool:
+        """Closed by ``close()``, or by a program that failed and aborted
+        the group."""
+        return self._closed or (self.group is not None and self.group.closed)
+
+    def _check_open(self) -> None:
+        if self.closed:
+            self.close()
+            raise RuntimeError("the disaggregated engine is closed (closed, "
+                               "or its TP group was aborted by a failure)")
+
+    def close(self) -> None:
+        """Drop every worker engine, then the shard set, then the group
+        if this engine made it (a ``group`` passed in stays open and only
+        forgets them). Idempotent; stats and results stay readable."""
+        if self._closed:
+            return
+        self._closed = True
+        for eng in self.prefill_engines + self.decode_engines:
+            eng.close()
+        if self.group is not None:
+            if self._sid is not None:
+                self.group.drop_shards(self._sid)
+            if self._own_group:
+                self.group.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
     # -- stats ---------------------------------------------------------------
     @staticmethod
     def _fresh_stats() -> Dict[str, Any]:
         s = Engine._fresh_stats()
         s.update(migrated_pages=0, migrated_requests=0,
                  prefill_prefix_hits=0, prefill_prefix_tokens_reused=0,
+                 handoff_s=0.0, handoff_bytes=0, handoff_pipe_bytes=0,
                  router={})
         return s
 
@@ -163,6 +254,7 @@ class DisaggEngine:
         submission, not mid-hand-off. The arrival stamp taken here crosses
         the hand-off (the decode worker's ``arrival_t``), so its TTFT and
         queue wait count from the request's arrival."""
+        self._check_open()
         if not prompt:
             raise ValueError("empty prompt")
         budget = (self.scfg.max_new_tokens if max_new_tokens is None
@@ -262,7 +354,37 @@ class DisaggEngine:
         """Drain the queue in waves: route, prefill, migrate, decode.
         Requests submitted mid-wave (from ``on_token`` or ``poll``) join
         the next wave. Returns {request_id: tokens} for this cycle; stats
-        cover this cycle only."""
+        cover this cycle only. A failure in a worker's program (at tp > 1
+        it aborts the group) closes this engine and raises."""
+        self._check_open()
+        try:
+            return self._run(poll)
+        except BaseException:
+            if self.closed:
+                self.close()
+            raise
+
+    def _handoff_pages(self, req: Request, dw: int) -> None:
+        """Migrate ``req``'s prompt pages from its prefill worker to decode
+        worker ``dw``: export (device to host; under TP the kv heads of
+        every rank gathered) then import (host to device; under TP each
+        rank its own heads), timed, with the payload bytes and the bytes
+        written to the group's pipes."""
+        deng = self.decode_engines[dw]
+        pipe0 = self.group.pipe_bytes if self.group is not None else 0
+        t0 = time.perf_counter()
+        kv = self.prefill_engines[req._route].export_kv_pages(req.prompt)
+        n = deng.import_kv_pages(kv)
+        self.stats["handoff_s"] += time.perf_counter() - t0
+        self.stats["handoff_bytes"] += sum(
+            v.numel() * v.element_size() for v in kv.payload.values())
+        if self.group is not None:
+            self.stats["handoff_pipe_bytes"] += self.group.pipe_bytes - pipe0
+        self.router.note_migrated(dw, n)
+        self.stats["migrated_pages"] += n
+        self.stats["migrated_requests"] += n > 0
+
+    def _run(self, poll) -> Dict[int, List[int]]:
         self.stats = self._fresh_stats()
         self._run_t0 = time.perf_counter()
         while True:
@@ -297,12 +419,7 @@ class DisaggEngine:
                 dw = self.router.pick_decode()
                 deng = self.decode_engines[dw]
                 if req._route is not None:
-                    kv = self.prefill_engines[req._route].export_kv_pages(
-                        req.prompt)
-                    n = deng.import_kv_pages(kv)
-                    self.router.note_migrated(dw, n)
-                    self.stats["migrated_pages"] += n
-                    self.stats["migrated_requests"] += n > 0
+                    self._handoff_pages(req, dw)
                 wid = deng.submit(list(req.prompt),
                                   max_new_tokens=req.max_new_tokens,
                                   on_token=self._emit_cb(req),
@@ -357,6 +474,7 @@ class DisaggEngine:
         routed output equals ``Engine.generate`` with the same
         ServeConfig); radix trees and page pools persist, so a repeated
         queue stays warm."""
+        self._check_open()
         if self._queue:
             raise RuntimeError(
                 f"{len(self._queue)} submitted request(s) pending; call "

@@ -131,7 +131,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quantize import QTensor, _div
+from repro_torch.core.quantize import _div
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.group import TPGroup, rank_devices
@@ -205,17 +205,6 @@ def _draw_seed(seed: int, draw: int) -> int:
     return (z ^ (z >> 31)) >> 1             # torch seeds below 2**63
 
 
-def _tree_to(tree, device: torch.device):
-    """A parameter tree (dicts of tensors and QTensors) on ``device``;
-    leaves already there are kept as they are (views stay views)."""
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, QTensor):
-        return QTensor(tree.variant, tree.shape,
-                       {k: _tree_to(v, device) for k, v in tree.data.items()})
-    return tree if tree.device == device else tree.to(device)
-
-
 @dataclasses.dataclass
 class KVPages:
     """Host-memory snapshot of a prompt's full KV pages, the hand-off unit
@@ -277,7 +266,8 @@ class Request:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 device="cuda", *, group: Optional[TPGroup] = None):
+                 device="cuda", *, group: Optional[TPGroup] = None,
+                 shards: Optional[int] = None):
         """``params`` must already lie on ``device``. With no GPU the
         default device raises; pass ``device="cpu"`` for the CPU path.
 
@@ -286,10 +276,14 @@ class Engine:
         it) and hands each its local shard of ``params``. ``device``
         places the ranks (``distributed.group.rank_devices``): "cuda"
         puts rank r on cuda:r and raises with fewer cards, a list such as
-        ``["cuda:0"] * N`` shares cards, "cpu" takes any N. Every
-        rendezvous and collective waits at most the group's timeout.
-        Close the engine (``close()``, or use it as a context manager) to
-        stop its workers."""
+        ``["cuda:0"] * N`` shares cards, "cpu" takes any N. ``shards``
+        names a weight shard set already on ``group``
+        (``TPGroup.put_shards`` of ``params`` under this engine's plan):
+        the engine opens on it instead of making its own, so engines on
+        one set hold one copy of the weights a rank. Every rendezvous and
+        collective waits at most the group's timeout. Close the engine
+        (``close()``, or use it as a context manager) to stop its
+        workers."""
         for field in ("max_slots", "decode_chunk", "max_new_tokens",
                       "cache_len", "prefill_batch", "prefill_chunk", "tp"):
             if getattr(serve_cfg, field) < 1:
@@ -303,6 +297,9 @@ class Engine:
         self._plan = SH.make_serve_tp_plan(cfg, tp,
                                            matmul=serve_cfg.tp_matmul,
                                            params=params, ep=serve_cfg.tp_ep)
+        if shards is not None and (tp == 1 or group is None):
+            raise ValueError("shards= names a shard set on a group: it "
+                             "needs tp > 1 and group=")
         if tp == 1:
             devices = [resolve_device(device)]
         elif group is not None:
@@ -319,25 +316,22 @@ class Engine:
         self.tp_backend: Optional[str] = None
         if tp == 1:
             return
-        self._pspecs = SH.serve_param_specs(params, self._plan)
         self._cspecs = SH.serve_cache_specs(
             T.init_cache(cfg, 1, self._T, device="meta"), self._plan)
-        shards = [_tree_to(SH.localize_serve_params(params, self._pspecs,
-                                                    tp, r), devices[r])
-                  for r in range(tp)]
         self._own_group = group is None
+        self._own_shards = shards is None
         self._group = group or TPGroup(tp, devices)
         try:
+            if shards is None:
+                shards = self._group.put_shards(params, self._plan)
+            self._sid = shards
             self._eid = self._group.open_engine(cfg, serve_cfg, self._plan,
-                                                shards[1:])
+                                                shards)
         except BaseException:
             if self._own_group:
                 self._group.abort()
             raise
-        # rank 0 keeps every shard alive: the workers map them by CUDA IPC
-        # or shared memory
-        self._shards = shards
-        self.params = shards[0]
+        self.params = self._group.local_shards(shards)
         self.tp_backend = self._group.backend
         print(f"[tp] {self._group.describe()}", flush=True)
 
@@ -454,8 +448,8 @@ class Engine:
 
     def close(self) -> None:
         """Stop this engine's worker ranks (tp > 1; a ``group`` passed in
-        stays open and only forgets the engine). Idempotent; stats and
-        results stay readable."""
+        stays open and only forgets the engine, and the shard set the
+        engine made). Idempotent; stats and results stay readable."""
         if self._closed:
             return
         self._closed = True
@@ -464,7 +458,8 @@ class Engine:
                 self._group.close()
             else:
                 self._group.drop_engine(self._eid)
-            self._shards = None
+                if self._own_shards:
+                    self._group.drop_shards(self._sid)
 
     def __enter__(self):
         return self

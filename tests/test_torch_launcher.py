@@ -8,8 +8,9 @@ admission: ``--drafter``, ``--draft-*``, ``--prefix-*``,
 ``--shared-prefix``, ``--max-queue`` and ``--preempt``; and for
 disaggregated serving and the HTTP front end: ``--disagg``,
 ``--prefill-workers``, ``--decode-workers``, ``--http``, ``--host``,
-``--port`` and ``--request-timeout``. ``main`` returns the engine after
-its run and the ``{request id: tokens}`` it printed.
+``--port`` and ``--request-timeout``, also over tensor-parallel workers
+(``--disagg --tp 2 --force-host-devices 2``). ``main`` returns the
+engine after its run and the ``{request id: tokens}`` it printed.
 """
 import re
 
@@ -199,3 +200,41 @@ def test_http_flags_reach_the_front_end(monkeypatch, disagg):
     assert (f.host, f.port, f.request_timeout_s, f.model_name,
             f.max_tokens_default) == ("0.0.0.0", 0, 7.5, "llama3.2-1b", 6)
     assert eng.stats["admissions"] == 0         # nothing was drained
+
+
+TP_DISAGG = ["--disagg", "--prefix-page", "8", "--shared-prefix", "20",
+             "--prompt-len", "10"]
+
+
+def test_disagg_over_tp2_serves_the_tp1_tokens(capsys):
+    """``--disagg --tp 2 --force-host-devices 2``: both tiers on one group
+    of two CPU ranks serve the ``--tp 1`` tokens, the stats line carries
+    the hand-off, and the launcher closes the engine and its group."""
+    _, one = serve.main(BASE + TP_DISAGG)
+    capsys.readouterr()
+    eng, two = serve.main(BASE + TP_DISAGG + ["--tp", "2",
+                                              "--force-host-devices", "2"])
+    assert isinstance(eng, DisaggEngine) and eng.group.size == 2
+    assert two == one
+    assert eng.closed and eng.group.closed
+    assert not any(p.is_alive() for p in eng.group._procs)
+    out = capsys.readouterr().out
+    assert re.search(r"hand-off [\d.]+ ms for [1-9]\d* bytes", out)
+    assert "backend gloo" in out
+
+
+def test_http_over_a_tp2_disagg_engine(monkeypatch):
+    """``--http --disagg --tp 2`` hands the tensor-parallel
+    ``DisaggEngine`` to the front end and closes it when the server
+    stops."""
+    seen = {}
+
+    def fake_serve_forever(engine, fcfg):
+        seen.update(engine=engine, closed=engine.closed)
+    monkeypatch.setattr(frontend, "serve_forever", fake_serve_forever)
+    eng, res = serve.main(BASE + ["--http", "--port", "0", "--disagg",
+                                  "--tp", "2", "--force-host-devices", "2"])
+    assert seen["engine"] is eng and res == {} and not seen["closed"]
+    assert isinstance(eng, DisaggEngine) and eng.group.size == 2
+    assert eng.closed and eng.group.closed
+

@@ -1,13 +1,14 @@
 """The port's serve-TP plan and shard rules against the reference's.
 
-No process group here: ``make_serve_tp_plan`` field by field for every
-registered arch (reduced and full) at sizes 1-4 under each datapath
-(with params for "sliced_row"), the per-leaf rules of
-``serve_param_specs``/``serve_cache_specs`` against the reference's
-PartitionSpecs leaf by leaf, the lane and row shards of a packed QTensor
-byte for byte against the reference's, the localized shapes, and the
-reference's validation errors (which the engine raises before it starts
-any worker).
+No process group here (but one case, below): ``make_serve_tp_plan``
+field by field for every registered arch (reduced and full) at sizes
+1-4 under each datapath (with params for "sliced_row"), the per-leaf
+rules of ``serve_param_specs``/``serve_cache_specs`` against the
+reference's PartitionSpecs leaf by leaf, the lane and row shards of a
+packed QTensor byte for byte against the reference's, the localized
+shapes, and the reference's validation errors (which the engine raises
+before it starts any worker). One case starts a worker: a tp = 2
+``DisaggEngine`` opens and closes its group.
 """
 import dataclasses
 
@@ -290,5 +291,10 @@ def test_validation_errors_match_reference():
             Engine(cfg, {}, ServeConfig(tp=2, **BASE), device="cuda")
     with pytest.raises(ValueError, match="one device a rank"):
         Engine(cfg, {}, ServeConfig(tp=2, **BASE), device=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DisaggEngine(cfg, {}, ServeConfig(tp=2, **BASE), device="cpu")
+    # DisaggEngine serves tp > 1 since slice 14: it opens its workers on
+    # a group of its own and closes it (no weights are needed to open)
+    with DisaggEngine(cfg, {}, ServeConfig(tp=2, **BASE),
+                      device="cpu") as dis:
+        assert dis.group.size == 2 and not dis.closed
+        procs = list(dis.group._procs)
+    assert dis.closed and not any(p.is_alive() for p in procs)
