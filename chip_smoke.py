@@ -407,6 +407,36 @@ Phases, each of which exits nonzero on failure:
    ``--disagg --tp 2 --device cuda:0,cuda:0`` against its ``--tp 1`` run
    (full depth, 45 + 110 launches a forward); every engine and group
    closed and no worker process left. Phases 47-48 print their walls.
+49. the matmul's on-chip budget, slice 15: for each of the 40
+   instantiations (8 variants x the launcher's 8-, 16-, 32- and 64-token
+   tiles and the folded 64), ``kernels/bfp_matmul.py::smem_bytes``
+   (computed from the constants of ``csrc/bfp_matmul.cu``) against
+   ``cuFuncGetAttribute`` on the handle from the loaded library: static
+   shared memory (0) and the dynamic figure the launch allows must be
+   equal; registers a thread and local (spill) bytes are printed.
+50. the serve flow: ``python -m repro_torch.launch.serve_quantized
+   --full`` through its ``main``: full-width tinyllama-1.1b packed with
+   paper_llama_mix, 6 requests of 6-token prompts on 2 slots, 10 new
+   tokens, an ``on_token`` callback each; launch counts zeroed just
+   before and read just after: 45 q2_k + 110 q3_k every forward, no
+   attention kernel; the streamed tokens equal run()'s, which equal
+   ``generate_reference``; the callbacks fire in the order of the same
+   flow's reduced run on the CPU (which the tests hold to the reference
+   example's).
+51. the mixed-policy flow (``launch/mixed_quant_policy.py``, reduced
+   llama3.2-1b as the reference example) on the card and on the CPU from
+   one set of weights and tokens: each of the six policies packs the
+   same bytes; the card's forwards launch ``FLOW_POLICY_LAUNCHES`` (every
+   format the policies name: q2_k, q3_k, q4_k, q6_k); KL is finite,
+   orders the pure variants and lies within ``TOL_FLOW_KL`` (1e-2
+   relative) of the CPU's for every policy, which holds each format's
+   kernel at the flow's reduced shapes (K = 256 and 512, M = 64).
+52. the train flow: ``python -m repro_torch.launch.train_e2e --steps
+   FLOW_TRAIN_STEPS`` through its ``main``: the ~100M llama of the
+   example at its shapes (8 x 128, AdamW 6e-4, checkpoints in a
+   temporary directory), finite losses that fall, no kernel of the port
+   launched; step p50/p99 and tokens/s printed. Phases 49-52 print their
+   wall.
 
 Without a GPU, or outside a checkout, it exits nonzero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -702,6 +732,22 @@ DTP_SERVE = dict(TP_SERVE, prefix_page=16)
 DTP_TEMP = dict(temperature=0.8, seed=7)
 DTP_PER_FORWARD = {"q2_k": 45, "q3_k": 110}
 DTP_MEM_SLACK = 0.05
+# slice 15 (phases 49-52): the on-chip budget read back, and the example
+# flows through their entry points. The serve flow's forward at full width
+# (tinyllama-1.1b, paper_llama_mix) launches path 1's kernels. The policy
+# flow (reduced llama3.2-1b, 2 layers, tied head: no kernel) packs six
+# policies and runs one student forward each: 14 launches a policy, q2_k
+# pure 14 + paper mix wk, wv 4; q3_k pure 14 + paper mix 10 + extended mix
+# wq, wk, wo, w_gate, w_up 10; q4_k pure 14 + extended mix wv, w_down 4;
+# q6_k pure 14. The train flow runs FLOW_TRAIN_STEPS of the example's 300
+# steps, for time.
+FLOW_SERVE_PER_FORWARD = {"q2_k": 45, "q3_k": 110}
+FLOW_POLICY_LAUNCHES = {"q2_k": 18, "q3_k": 34, "q4_k": 18, "q6_k": 14}
+FLOW_TRAIN_STEPS = 30
+# the policy flow's KL on the card against the CPU's, relative, a policy:
+# the same bf16 forwards whose products sum in another order (predicted
+# 1%; an H100 80GB HBM3 at 700 W read at most 0.156%)
+TOL_FLOW_KL = 1e-2
 # rows held against the M=1 product: places in an 8-token group, in a
 # 64-token tile and past the first tile
 ROWS_CHECKED = (0, 3, 7, 8, 63, 64, 127, 200, 511)
@@ -4983,6 +5029,171 @@ def phase_disagg_tp_entry_points(torch, np, get_arch, T, quantize_params,
     return launches, attn, out
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the matmul's on-chip budget, and the example flows
+# ---------------------------------------------------------------------------
+
+def phase_budget(PB):
+    """Phase 49: every instantiation's computed shared memory against the
+    card's reading (``cuFuncGetAttribute`` through the loaded library);
+    registers and spills reported. Returns {variant: [schedule rows]}."""
+    t0 = time.perf_counter()
+    out = {}
+    for row in PB.budget(card=True):
+        card = row["card"]
+        name = (f"{row['variant']} {row['tokens']}-token tile"
+                f"{', folded' if row['fold'] else ''}")
+        check(card["static_smem"] == row["static"],
+              f"budget {name}: static shared memory {card['static_smem']} "
+              f"B on the card, {row['static']} computed")
+        check(card["max_dynamic_smem"] == row["dynamic"],
+              f"budget {name}: dynamic shared memory "
+              f"{card['max_dynamic_smem']} B on the card, {row['dynamic']} "
+              "computed")
+        check(row["total"] <= PB.SMEM_PER_BLOCK,
+              f"budget {name}: {row['total']} B past a block's")
+        out.setdefault(row["variant"], []).append(
+            {k: row[k] for k in ("groups", "tokens", "fold", "x_tile",
+                                 "w_packed_tile", "out_tile", "static",
+                                 "dynamic")}
+            | {"regs": card["regs"], "local_bytes": card["local_bytes"]})
+    for v, rows in out.items():
+        print(f"[budget] {v}: " + "; ".join(
+            f"{r['tokens']}{'f' if r['fold'] else ''} {r['dynamic']} B smem "
+            f"{r['regs']} regs {r['local_bytes']} B local" for r in rows),
+            flush=True)
+    print(f"[budget] {sum(len(r) for r in out.values())} instantiations: "
+          "computed shared memory == cuFuncGetAttribute's (static 0, "
+          f"dynamic as launched); {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    return out
+
+
+def phase_serve_flow(torch, PB, PA, dev):
+    """Phase 50: ``python -m repro_torch.launch.serve_quantized --full``
+    through its ``main``: full-width tinyllama-1.1b under paper_llama_mix,
+    6 requests on 2 slots with streaming callbacks, the launch counts
+    zeroed just before and read just after. Returns (launches, summary)."""
+    from repro_torch.launch import serve_quantized as SQ
+    t0 = time.perf_counter()
+    PB.reset_launches()
+    PA.reset_launches()
+    out = SQ.main(["--full"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, s = dict(PB.launches), out["stats"]
+    check(out["layers"] == FLOW_SERVE_PER_FORWARD,
+          f"serve flow packed {out['layers']}")
+    _check_launches("serve flow", PB, launches, s, FLOW_SERVE_PER_FORWARD)
+    check(PA.launches["prefill_attn"] == 0, "serve flow: attention kernel "
+          "launched on the naive path")
+    check(out["streamed"] == out["results"] and len(out["results"]) == 6
+          and all(len(t) == 10 for t in out["results"].values()),
+          "serve flow: the callbacks differ from run()'s results")
+    eng, prompts = out["engine"], out["prompts"]
+    ref = []
+    for lo in range(0, len(prompts), SQ.SERVE["max_slots"]):
+        ref += eng.generate_reference(prompts[lo:lo + SQ.SERVE["max_slots"]])
+    check(ref == [out["results"][i] for i in range(len(prompts))],
+          "serve flow: run() != generate_reference")
+    # the callbacks' order is the scheduler's: the CPU's reduced run, which
+    # the tests hold to the reference's example, calls them alike
+    cpu = SQ.main(["--device", "cpu"])
+    order = [r for r, _ in out["events"]]
+    check(order == [r for r, _ in cpu["events"]],
+          "serve flow: the callbacks fire in another order than on the CPU")
+    print(f"[serve flow] full-width tinyllama-1.1b: {s['forwards']} "
+          f"forwards, {launches['q2_k']} q2_k + {launches['q3_k']} q3_k "
+          f"launches; callbacks == run() == generate_reference; callback "
+          f"order == the CPU's {order}; {s['tok_per_s']:.1f} tok/s decode, "
+          f"{s['host_syncs']} host syncs over {s['chunks']} chunks; "
+          f"{wall:.1f}s with packing", flush=True)
+    summary = {"wall_s": wall, "forwards": s["forwards"],
+               "tok_per_s": s["tok_per_s"], "host_syncs": s["host_syncs"],
+               "chunks": s["chunks"], "sizes": out["sizes"]}
+    del out, eng, cpu
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_policy_flow(torch, get_arch, T, to_device, PB, dev):
+    """Phase 51: the mixed-policy flow (reduced llama3.2-1b, as the
+    reference) on the card and on the CPU from the same weights and
+    tokens: the same bytes a policy, the launches a policy's forward
+    makes, KL card against CPU within ``TOL_FLOW_KL``. Returns (launches,
+    rows)."""
+    from repro_torch.core import quality
+    from repro_torch.launch import mixed_quant_policy as MQ
+    t0 = time.perf_counter()
+    cfg = get_arch("llama3.2-1b", reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = quality.eval_tokens(cfg, batch=MQ.BATCH, seq=MQ.SEQ, seed=1,
+                               device="cpu")
+    cpu = MQ.run(cfg, params, toks, log=lambda *_: None)
+    PB.reset_launches()
+    card = MQ.run(cfg, to_device(params, dev), toks.to(dev))
+    torch.cuda.synchronize()
+    launches = dict(PB.launches)
+    want = {v: FLOW_POLICY_LAUNCHES.get(v, 0) for v in PB.VARIANTS}
+    check(launches == want, f"policy flow launches {launches}, expected "
+          f"{want}")
+    rows = []
+    for c, h in zip(card, cpu):
+        check(c["policy"] == h["policy"] and c["sizes"] == h["sizes"],
+              f"policy flow {c['policy']}: bytes {c['sizes']} on the card, "
+              f"{h['sizes']} on the CPU")
+        check(0 < c["kl"] < float("inf"), f"policy flow {c['policy']}: KL "
+              f"{c['kl']}")
+        rel = abs(c["kl"] - h["kl"]) / h["kl"]
+        check(rel <= TOL_FLOW_KL, f"policy flow {c['policy']}: KL "
+              f"{c['kl']} on the card, {h['kl']} on the CPU ({rel:.2e} "
+              f"apart, past {TOL_FLOW_KL})")
+        rows.append({"policy": c["policy"], "bytes": c["sizes"]["total"],
+                     "kl": c["kl"], "kl_cpu": h["kl"], "kl_rel_diff": rel})
+    kl = {r["policy"]: r["kl"] for r in rows}
+    check(kl["pure_q6_k"] < kl["pure_q4_k"] < kl["pure_q3_k"]
+          < kl["pure_q2_k"], f"policy flow: KL out of order {kl}")
+    wall = time.perf_counter() - t0
+    print(f"[policy flow] launches {launches} == {want}; bytes equal the "
+          f"CPU's; KL card vs CPU (within {TOL_FLOW_KL}) " + ", ".join(
+              f"{r['policy']} {r['kl']:.6f} / {r['kl_cpu']:.6f}"
+              for r in rows) + f"; {wall:.1f}s", flush=True)
+    return launches, {"rows": rows, "wall_s": wall}
+
+
+def phase_train_flow(torch, PB, PA, PK):
+    """Phase 52: ``python -m repro_torch.launch.train_e2e --steps
+    FLOW_TRAIN_STEPS`` through its ``main`` (the ~100M llama at the
+    example's shapes, checkpoints in a temporary directory): the loss
+    falls (``main`` raises otherwise), every loss is finite, no kernel of
+    the port launches."""
+    from repro_torch.launch import train_e2e as TE
+    t0 = time.perf_counter()
+    _reset_kernels(PB, PA, PK)
+    res = TE.main(["--steps", str(FLOW_TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    losses, t = res["losses"], res["timing"]
+    check(len(losses) == FLOW_TRAIN_STEPS
+          and all(x == x and abs(x) < float("inf") for x in losses),
+          f"train flow losses {losses}")
+    check(_kernel_launches(PB, PA, PK) == 0,
+          "train flow launched a kernel of the port")
+    n = _n_params(res["state"]["params"])
+    tok_s = TE.RUN["global_batch"] * TE.RUN["seq_len"] / t["p50"]
+    print(f"[train flow] llama-100m ({n:,} params), {FLOW_TRAIN_STEPS} steps "
+          f"of {TE.RUN['global_batch']} x {TE.RUN['seq_len']}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, step p50 "
+          f"{1e3 * t['p50']:.1f} ms p99 {1e3 * t['p99']:.1f} ms "
+          f"({tok_s:.0f} tok/s), no kernel launched; {wall:.1f}s with the "
+          "final checkpoint", flush=True)
+    out = {"params": n, "losses": losses, "p50_ms": 1e3 * t["p50"],
+           "p99_ms": 1e3 * t["p99"], "tok_per_s": tok_s, "wall_s": wall}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc" / "bfp_matmul.cu").is_file():
@@ -5182,6 +5393,18 @@ def main() -> None:
     launches14.update(lau)
     attn14.update(at)
 
+    # slice 15: the on-chip budget read back, the example flows
+    t15 = time.perf_counter()
+    slice15 = {"budget": phase_budget(PB)}
+    launches15 = {}
+    launches15["serve_quantized_flow"], slice15["serve_flow"] = \
+        phase_serve_flow(torch, PB, PA, dev)
+    launches15["mixed_quant_policy_flow"], slice15["policy_flow"] = \
+        phase_policy_flow(torch, get_arch, T, to_device, PB, dev)
+    slice15["train_flow"] = phase_train_flow(torch, PB, PA, PK)
+    slice15["wall_s"] = time.perf_counter() - t15
+    print(f"[flows] phases 49-52 took {slice15['wall_s']:.1f}s", flush=True)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -5201,7 +5424,8 @@ def main() -> None:
                    **{p: launches11[p][v] for p in launches11},
                    **{p: launches12[p][v] for p in launches12},
                    "dryrun_check_decode": launches13.get(v, 0),
-                   **{p: launches14[p][v] for p in launches14}}
+                   **{p: launches14[p][v] for p in launches14},
+                   **{p: launches15[p][v] for p in launches15}}
         t = next(tt[v] for tt in (timing, timing2, timing3) if v in tt)
         dec = t["decode"]
         kernels.append({
@@ -5240,6 +5464,7 @@ def main() -> None:
             kernels[-1]["tp_shapes"] = tp_rows
             kernels[-1]["max_abs_err_tp_shapes"] = tp_kernels[
                 "matmul_max_abs"]
+        kernels[-1]["smem_budget"] = slice15["budget"][v]
         if v == "q2_k":
             kernels[-1]["gpt2_head_n50257"] = head_timing
             kernels[-1]["max_abs_err_n50257"] = max_abs["q2_k_n50257"]
@@ -5298,6 +5523,7 @@ def main() -> None:
     print(f"[slice12] summary: {json.dumps(slice12)}", flush=True)
     print(f"[slice13] summary: {json.dumps(slice13)}", flush=True)
     print(f"[slice14] summary: {json.dumps(slice14)}", flush=True)
+    print(f"[slice15] summary: {json.dumps(slice15)}", flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

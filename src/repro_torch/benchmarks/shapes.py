@@ -1,6 +1,11 @@
 """Per-arch MatMul tensor inventories (path, K, N) for size/distribution
 accounting (Fig. 1 / Table III) and for walking a model's MatMuls through
-the integer datapath. Counterpart of ``benchmarks/shapes.py``."""
+the integer datapath. Counterpart of ``benchmarks/shapes.py``, quirks
+included (``core/policy.py::summarize`` counts what it lists): an MoE
+config lists one expert's MLP a layer (``d_ff``, not its E expert
+stacks), mamba2 (``n_heads`` = ``d_ff`` = 0) zero-width attention and MLP
+rows beside its real LM head (no in_proj/out_proj), and a hybrid config
+every layer as a dense attention + MLP block."""
 from repro_torch.configs.base import ModelConfig
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import json
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.core import formats as F
 
@@ -146,3 +146,41 @@ def save_policy(policy: QuantPolicy, path) -> None:
 def load_policy(path) -> QuantPolicy:
     with open(path) as f:
         return policy_from_dict(json.load(f))
+
+
+# --------------------------------------------------------------------------
+# accounting (Fig. 1 / Table III): layers, parameters and bytes a variant
+# --------------------------------------------------------------------------
+
+def summarize(policy: QuantPolicy,
+              matmuls: Sequence[Tuple[str, int, int]],
+              extra_f16: Sequence[Tuple[str, int]] = ()) -> Dict[str, object]:
+    """Given MatMul tensors [(path, K, N)] and non-matmul fp16 tensors
+    [(path, numel)], return per-variant layer counts (``counts``, an
+    unquantized MatMul under "f16"), parameter counts (``params``) and the
+    total size in bytes, in this layout's bits (``size_bytes``) and in
+    gguf's (``size_bytes_gguf``): an unquantized tensor counts 2 bytes a
+    value. Pure arithmetic over the shapes, as the reference's; the
+    inventory is the caller's (``benchmarks/shapes.py::model_matmuls``,
+    whose MoE and mamba2 shapes are the reference's as they stand)."""
+    counts: Dict[str, int] = {}
+    params: Dict[str, int] = {}
+    size_ours = 0.0
+    size_gguf = 0.0
+    for path, K, N in matmuls:
+        v = policy.variant_for(path, K, N)
+        key = v or "f16"
+        counts[key] = counts.get(key, 0) + 1
+        params[key] = params.get(key, 0) + K * N
+        if v is None:
+            size_ours += K * N * 2
+            size_gguf += K * N * 2
+        else:
+            fmt = F.get_format(v)
+            size_ours += K * N * fmt.bits_per_weight / 8.0
+            size_gguf += K * N * fmt.bits_per_weight_gguf / 8.0
+    for _, numel in extra_f16:
+        size_ours += numel * 2
+        size_gguf += numel * 2
+    return dict(counts=counts, params=params,
+                size_bytes=int(size_ours), size_bytes_gguf=int(size_gguf))

@@ -149,7 +149,6 @@ def spec_like_quantized(params_spec: Dict[str, Any], policy: QuantPolicy,
     dtypes, payload for payload the reference's (an expert stack packed
     along E*K). Nothing is allocated."""
     from repro_torch.configs.base import shape_only
-    from repro_torch.core.formats import get_format, pick_fallback
 
     def walk(node, prefix=""):
         if isinstance(node, dict):
@@ -161,14 +160,13 @@ def spec_like_quantized(params_spec: Dict[str, Any], policy: QuantPolicy,
         variant = policy.variant_for(path, K, N)
         if variant is None:
             return node
-        variant = pick_fallback(variant, K)
         expert = (any(f in path for f in expert_stack_paths)
                   and len(node.shape) >= 3)
         lead = tuple(node.shape[:-3] if expert else node.shape[:-2])
         keff = node.shape[-3] * K if expert else K
-        data = {a.name: shape_only(lead + (keff // a.k_div, N),
-                                   getattr(torch, a.dtype))
-                for a in get_format(variant).arrays}
-        return Q.QTensor(variant, (keff, N), data)
+        one = Q.qtensor_spec(variant, keff, N)
+        data = {k: shape_only(lead + tuple(v.shape), v.dtype)
+                for k, v in one.data.items()}
+        return Q.QTensor(one.variant, (keff, N), data)
 
     return walk(params_spec)

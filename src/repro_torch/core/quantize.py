@@ -59,6 +59,11 @@ class QTensor:
         return sum(v.numel() * v.element_size() for v in self.data.values())
 
     @property
+    def bits_per_weight(self) -> float:
+        K, N = self.shape
+        return self.nbytes * 8.0 / (K * N)
+
+    @property
     def num_layers(self) -> int:
         """Length of the leading stack axis (1 for an unstacked tensor)."""
         v = next(iter(self.data.values()))
@@ -467,3 +472,19 @@ def quantize(variant: str, w: torch.Tensor) -> QTensor:
 
 def dequantize(t: QTensor, dtype=torch.float32) -> torch.Tensor:
     return _DEQUANTIZE[t.variant](t, dtype=dtype)
+
+
+def qtensor_spec(variant: str, K: int, N: int) -> QTensor:
+    """Shape-only stand-in of a packed (K, N) weight: a QTensor whose
+    payloads are meta tensors of the packed shapes and dtypes, nothing
+    allocated (the reference's ``ShapeDtypeStruct`` stand-in, for the dry
+    run). The llama.cpp fallback applies (K % 256 != 0 -> q8_0)."""
+    variant = F.pick_fallback(variant, K)
+    fmt = F.get_format(variant)
+    if K % fmt.super_block:
+        raise ValueError(f"{variant}: K={K} not divisible by super-block "
+                         f"{fmt.super_block}")
+    data = {a.name: torch.empty((K // a.k_div, N),
+                                dtype=getattr(torch, a.dtype), device="meta")
+            for a in fmt.arrays}
+    return QTensor(variant, (K, N), data)

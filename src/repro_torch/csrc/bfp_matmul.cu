@@ -115,6 +115,16 @@ constexpr int kRowO = kBN + 8;    // floats an output-tile row
 // The splits of a tile run in one block (folded) where full token tiles
 // alone give this many blocks, three quarters of the H100's 132 SMs.
 constexpr int kFoldTiles = 99;
+// The token tiles the launcher instantiates, in 8-token groups: groups(M)
+// picks the smallest that holds M tokens (the largest past that), and only
+// the largest folds its splits (launch_ng).
+// kernels/bfp_matmul.py::schedules reads this line.
+constexpr int kTokenGroups[] = {1, 2, 4, kGroups};
+constexpr int n_token_tiles() {
+  return sizeof kTokenGroups / sizeof kTokenGroups[0];
+}
+static_assert(kTokenGroups[n_token_tiles() - 1] == kGroups,
+              "the largest token tile is kGroups groups");
 constexpr int kQ2 = 0;
 constexpr int kQ3 = 1;
 constexpr int kQ4 = 2;
@@ -669,7 +679,9 @@ sum_splits_kernel(const float* __restrict__ ws, void* __restrict__ out,
 
 // 8-token groups in a block's token tile
 int groups(int M) {
-  return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : kGroups;
+  for (const int g : kTokenGroups)
+    if (M <= 8 * g) return g;
+  return kGroups;
 }
 
 // Does a launch write split partials to the workspace? Not with one split,
@@ -692,18 +704,33 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int VARIANT, int NG, bool FOLD>
-cudaError_t launch_kernel(const Args& a, dim3 grid, float* ws) {
+// A block's dynamic shared memory: the two staged tiles, or the output
+// tile that reuses them, whichever is larger. The kernel declares no
+// static shared memory. kernels/bfp_matmul.py::smem_bytes reads these two
+// lines and the Tile struct above to compute the same figure.
+template <int VARIANT, int NG>
+constexpr int smem_bytes() {
   constexpr int kTiles = 2 * sizeof(Tile<VARIANT, NG>);
   constexpr int kOut = 8 * NG * kRowO * sizeof(float);
-  constexpr int smem = kTiles > kOut ? kTiles : kOut;
-  if constexpr (smem > 48 * 1024) {
-    // above 48 KB a block needs the opt-in; set once per instantiation
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        bfp_matmul_kernel<VARIANT, NG, FOLD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-  }
+  return kTiles > kOut ? kTiles : kOut;
+}
+
+// Allow an instantiation exactly its dynamic shared memory, once: above 48
+// KB a block needs this opt-in, and below it the attribute then reads the
+// launch's figure (CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES)
+template <int VARIANT, int NG, bool FOLD>
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bfp_matmul_kernel<VARIANT, NG, FOLD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<VARIANT, NG>());
+  return attr;
+}
+
+template <int VARIANT, int NG, bool FOLD>
+cudaError_t launch_kernel(const Args& a, dim3 grid, float* ws) {
+  constexpr int smem = smem_bytes<VARIANT, NG>();
+  const cudaError_t attr = allow_smem<VARIANT, NG, FOLD>();
+  if (attr != cudaSuccess) return attr;
   bfp_matmul_kernel<VARIANT, NG, FOLD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.p, a.out, a.out_dtype, ws,
       ceil_div(a.K, kSB) / a.splits, a.M, a.K, a.N, a.ld);
@@ -731,6 +758,16 @@ cudaError_t launch_ng(const Args& a) {
   return cudaGetLastError();
 }
 
+// launch_ng at the token tile of ng 8-token groups (one of kTokenGroups)
+template <int VARIANT, int I = 0>
+cudaError_t launch_groups(const Args& a, int ng) {
+  constexpr int NG = kTokenGroups[I];
+  if constexpr (I + 1 < n_token_tiles()) {
+    if (ng != NG) return launch_groups<VARIANT, I + 1>(a, ng);
+  }
+  return launch_ng<VARIANT, NG>(a);
+}
+
 template <int VARIANT>
 cudaError_t launch(int out_dtype, const void* x, const void* a0,
                    const void* a1, const void* a2, const void* a3,
@@ -752,12 +789,33 @@ cudaError_t launch(int out_dtype, const void* x, const void* a0,
          static_cast<cudaStream_t>(stream)};
   // the token tile only sets how many 8-token groups share a dequantized
   // fragment; every row sums in the same order whichever tile it is in
-  switch (groups(M)) {
-    case 1: return launch_ng<VARIANT, 1>(a);
-    case 2: return launch_ng<VARIANT, 2>(a);
-    case 4: return launch_ng<VARIANT, 4>(a);
-    default: return launch_ng<VARIANT, kGroups>(a);
+  return launch_groups<VARIANT>(a, groups(M));
+}
+
+// The handle of one instantiation (the token tile of ng 8-token groups,
+// folded splits or not), its shared memory allowed as a launch allows it,
+// for cuFuncGetAttribute
+template <int VARIANT, int NG, bool FOLD>
+cudaError_t handle(void** fn) {
+  const cudaError_t err = allow_smem<VARIANT, NG, FOLD>();
+  if (err != cudaSuccess) return err;
+  return cudaGetFuncBySymbol(
+      reinterpret_cast<cudaFunction_t*>(fn),
+      reinterpret_cast<const void*>(&bfp_matmul_kernel<VARIANT, NG, FOLD>));
+}
+
+template <int VARIANT, int I = 0>
+cudaError_t handle_ng(int ng, int fold, void** fn) {
+  constexpr int NG = kTokenGroups[I];
+  if (ng == NG) {
+    if (!fold) return handle<VARIANT, NG, false>(fn);
+    // only full token tiles fold their splits (launch_ng)
+    if constexpr (NG == kGroups) return handle<VARIANT, NG, true>(fn);
+    return cudaErrorInvalidValue;
   }
+  if constexpr (I + 1 < n_token_tiles())
+    return handle_ng<VARIANT, I + 1>(ng, fold, fn);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -843,4 +901,21 @@ extern "C" int bfp_matmul_q8_0(const void* x, const void* qs, const void* d,
                                void* stream) {
   return (int)launch<kQ80>(out_dtype, x, qs, nullptr, nullptr, nullptr, d,
                            nullptr, out, ws, splits, M, K, N, ld, stream);
+}
+
+// The CUfunction of bfp_matmul_kernel<variant, ng, fold> into *fn (variant
+// a kQ* code above), or a cudaError_t
+extern "C" int bfp_matmul_kernel_handle(int variant, int ng, int fold,
+                                        void** fn) {
+  switch (variant) {
+    case kQ2: return (int)handle_ng<kQ2>(ng, fold, fn);
+    case kQ3: return (int)handle_ng<kQ3>(ng, fold, fn);
+    case kQ4: return (int)handle_ng<kQ4>(ng, fold, fn);
+    case kQ6: return (int)handle_ng<kQ6>(ng, fold, fn);
+    case kQ3O: return (int)handle_ng<kQ3O>(ng, fold, fn);
+    case kQ40: return (int)handle_ng<kQ40>(ng, fold, fn);
+    case kQ5: return (int)handle_ng<kQ5>(ng, fold, fn);
+    case kQ80: return (int)handle_ng<kQ80>(ng, fold, fn);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -42,6 +42,9 @@ SIGNATURES = {
     } | {
         # M, N, splits: 1 if the launch writes split partials to ws
         "bfp_matmul_spreads_splits": [_c_int, _c_int, _c_int],
+        # variant code, 8-token groups, fold, CUfunction out
+        "bfp_matmul_kernel_handle": [_c_int, _c_int, _c_int,
+                                     ctypes.POINTER(_c_void_p)],
     },
     "prefill_attn": {
         # q, k, v, q_pos, kv_pos, out, q_dtype, kv_dtype, B, C, T, H, KH,

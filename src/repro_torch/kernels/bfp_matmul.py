@@ -23,10 +23,22 @@ once, when the tensor is made), and the kernel gets that row stride.
 ``launches`` counts kernel launches per variant. The wrapper adds one
 where it launches and nowhere else, so a run can show that the main path
 went through the kernel.
+
+``smem_bytes`` (alias ``vmem_bytes``, the reference's name for its TPU
+VMEM budget) is the kernel's on-chip budget on Hopper: the shared memory
+of one block of each instantiation the launcher picks (``schedules()``),
+computed from the constants of ``csrc/bfp_matmul.cu`` as read from that
+file. ``kernel_attributes`` reads an instantiation's real shared memory
+and registers a thread on the card (``cuFuncGetAttribute``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import ast
+import ctypes
+import functools
+import operator
+import re
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -177,3 +189,180 @@ def bfp_matmul_cuda(x: torch.Tensor, t: QTensor, *,
                            f"splits={splits})")
     launches[t.variant] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the on-chip budget: shared memory and registers of each instantiation
+# ---------------------------------------------------------------------------
+
+CU_SOURCE = _build.CSRC_DIR / "bfp_matmul.cu"
+SMEM_PER_BLOCK = 227 * 1024     # an H100 block's opt-in shared memory
+_ELEM = {"uint8_t": 1, "uint16_t": 2}
+# the source's name of each variant's format code (its value is read)
+_CODE_NAMES = {"q2_k": "kQ2", "q3_k": "kQ3", "q3_k_o": "kQ3O", "q4_0": "kQ40",
+               "q4_k": "kQ4", "q5_k": "kQ5", "q6_k": "kQ6", "q8_0": "kQ80"}
+# C's integer operators on ints
+_OPS = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul,
+        ast.Div: operator.floordiv}
+
+
+def _eval(expr: str, env: Dict[str, int]) -> int:
+    """An integer C expression of the source (names, literals, + - * /,
+    calls of ``at_least_1``), evaluated over ``env``."""
+    def ev(n):
+        if isinstance(n, ast.Constant) and isinstance(n.value, int):
+            return n.value
+        if isinstance(n, ast.Name) and n.id in env:
+            return env[n.id]
+        if isinstance(n, ast.BinOp) and type(n.op) in _OPS:
+            return _OPS[type(n.op)](ev(n.left), ev(n.right))
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                and n.func.id == "at_least_1" and len(n.args) == 1):
+            return max(ev(n.args[0]), 1)
+        raise ValueError(f"{CU_SOURCE.name}: cannot evaluate {expr!r}")
+    return ev(ast.parse(expr.replace("F::", "F_"), mode="eval").body)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout():
+    """What sets a block's shared memory, read from the CUDA source: the
+    namespace constants, each variant's ``Fmt`` rows, the ``Tile``
+    members, the two figures of ``smem_bytes()`` and the launcher's token
+    tiles (``kTokenGroups``). Raises where the source no longer reads as
+    expected."""
+    src = CU_SOURCE.read_text()
+
+    def one(pattern, what):
+        m = re.search(pattern, src, re.S | re.M)
+        if m is None:
+            raise ValueError(f"{CU_SOURCE.name}: no {what}")
+        return m.group(1)
+
+    consts: Dict[str, int] = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        consts[name] = _eval(expr, consts)
+    fmts = {code: {k: int(v) for k, v in re.findall(r"(k\w+) = (\d+)", body)}
+            for code, body in re.findall(
+                r"struct Fmt<(k\w+)> \{(.*?)\};", src, re.S)}
+    members = re.findall(r"alignas\((\d+)\) (\w+) (\w+)\[([^\]]+)\]"
+                         r"\[([^\]]+)\];",
+                         one(r"struct Tile \{(.*?)\};", "Tile struct"))
+    body = one(r"constexpr int smem_bytes\(\) \{(.*?)\n\}", "smem_bytes()")
+    tiles, out = (re.search(rf"constexpr int {k} = ([^;]+);", body).group(1)
+                  for k in ("kTiles", "kOut"))
+    groups = [_eval(g.strip(), consts) for g in one(
+        r"^constexpr int kTokenGroups\[\] = \{([^}]*)\};",
+        "kTokenGroups").split(",")]
+    return dict(consts=consts, fmts=fmts, members=members, tiles=tiles,
+                out=out, groups=groups)
+
+
+def _variant_code(variant: str) -> int:
+    """The format code of ``variant`` in the CUDA source."""
+    return _layout()["consts"][_CODE_NAMES[variant]]
+
+
+def schedules() -> List[Tuple[int, bool]]:
+    """The launcher's instantiations a variant: (8-token groups in the
+    token tile, splits folded in-block), each of the source's
+    ``kTokenGroups`` unfolded and the largest folded as well: ((1, False),
+    (2, False), (4, False), (8, False), (8, True))."""
+    gs = _layout()["groups"]
+    return [(g, False) for g in gs] + [(gs[-1], True)]
+
+
+def smem_bytes(variant: str, groups: int,
+               fold: bool = False) -> Dict[str, int]:
+    """Shared memory of one block of ``bfp_matmul_kernel<variant, groups,
+    fold>`` in bytes, from the source's constants: ``x_tile`` (the bf16
+    token rows of one staged 256-row tile), ``w_packed_tile`` (its packed
+    payload rows, and the one-row placeholder of each array the variant
+    lacks), ``tile`` (``sizeof(Tile)``, padding and alignment
+    included), ``out_tile`` (the f32 output tile), ``static`` (0: the
+    kernel's shared memory is all dynamic), ``dynamic`` (the launch's:
+    two staged tiles or the output tile, whichever is larger) and
+    ``total``. The counterpart of the reference's ``vmem_bytes``
+    (``kernels/bfp_matmul.py:155``); the folded schedule stages what the
+    unfolded one does."""
+    if (groups, fold) not in schedules():
+        raise ValueError(f"the launcher has no ({groups}, fold={fold}) "
+                         f"schedule; it has {schedules()}")
+    lay = _layout()
+    env = dict(lay["consts"], NG=groups)
+    env.update({f"F_{k}": v for k, v in
+                lay["fmts"][_CODE_NAMES[variant]].items()})
+    size = x_tile = w_packed = 0
+    for align, ctype, name, rows, cols in lay["members"]:
+        n = _eval(rows, env) * _eval(cols, env) * _ELEM[ctype]
+        size = -(-size // int(align)) * int(align) + n
+        if name == "x":
+            x_tile = n
+        else:
+            w_packed += n
+    align = max(int(m[0]) for m in lay["members"])
+    tile = -(-size // align) * align
+    sizes = {"sizeof(Tile<VARIANT, NG>)": tile, "sizeof(float)": 4}
+
+    def figure(expr):
+        for k, v in sizes.items():
+            expr = expr.replace(k, str(v))
+        return _eval(expr, env)
+    staged, out = figure(lay["tiles"]), figure(lay["out"])
+    dynamic = max(staged, out)
+    return dict(x_tile=x_tile, w_packed_tile=w_packed, tile=tile,
+                staged=staged, out_tile=out, static=0, dynamic=dynamic,
+                total=dynamic)
+
+
+vmem_bytes = smem_bytes      # the reference's name for the on-chip budget
+
+
+# CUfunction_attribute values (cuda.h)
+_CU_ATTRS = {"max_threads": 0, "static_smem": 1, "local_bytes": 3,
+             "regs": 4, "max_dynamic_smem": 8}
+
+
+def kernel_attributes(variant: str, groups: int,
+                      fold: bool = False) -> Dict[str, int]:
+    """The card's figures of one instantiation, by ``cuFuncGetAttribute``
+    on its handle from the loaded library (its dynamic shared memory
+    allowed first, as a launch allows it): static and the allowed dynamic
+    shared memory, registers a thread, local (spill) bytes a thread and
+    the most threads a block. Needs the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_attributes reads the card: no CUDA "
+                           "device is available")
+    torch.cuda.init()
+    lib = _build.load("bfp_matmul")
+    fn = ctypes.c_void_p()
+    err = lib.bfp_matmul_kernel_handle(_variant_code(variant), groups,
+                                       int(fold), ctypes.byref(fn))
+    if err != 0 or not fn.value:
+        raise RuntimeError(f"no handle for bfp_matmul_kernel<{variant}, "
+                           f"{groups}, {fold}>: cudaError_t {err}")
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for name, attr in _CU_ATTRS.items():
+        v = ctypes.c_int()
+        res = cuda.cuFuncGetAttribute(ctypes.byref(v), ctypes.c_int(attr),
+                                      fn)
+        if res != 0:
+            raise RuntimeError(f"cuFuncGetAttribute({name}) failed with "
+                               f"CUresult {res}")
+        out[name] = v.value
+    return out
+
+
+def budget(card: bool = False) -> List[Dict[str, object]]:
+    """One row a (variant, schedule): the computed shared memory and, with
+    ``card``, the card's figures beside it (``kernel_attributes``)."""
+    rows = []
+    for v in VARIANTS:
+        for g, fold in schedules():
+            row = dict(variant=v, groups=g, tokens=8 * g, fold=fold,
+                       **smem_bytes(v, g, fold))
+            if card:
+                row["card"] = kernel_attributes(v, g, fold)
+            rows.append(row)
+    return rows

@@ -179,6 +179,22 @@ def test_k_splits_takes_no_m():
     assert PB.k_splits(2048, 32000) == 1     # 500 column tiles
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", PB.VARIANTS)
+def test_smem_budget_equals_the_cards_reading(cuda_device, variant):
+    """The shared memory computed from the source (``smem_bytes``) is the
+    compiled kernel's, by ``cuFuncGetAttribute``: no static shared memory,
+    and the dynamic figure the launch allows; registers are read, not
+    gated."""
+    for row in PB.budget(card=True):
+        if row["variant"] != variant:
+            continue
+        card = row["card"]
+        assert card["static_smem"] == row["static"], row
+        assert card["max_dynamic_smem"] == row["dynamic"], row
+        assert 0 < card["regs"] <= 255 and card["max_threads"] >= 256
+
+
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 5632),
                                  (5632, 2048), (2048, 32000), (768, 2304),
                                  (768, 768), (768, 3072), (3072, 768),
